@@ -18,8 +18,14 @@ printing its own lines; any failure exits non-zero:
    counts over the 101 default cutoffs; the launch count is set to 0 before
    it and read after it, and the streamed probabilities are held against the
    non-streaming forward pass;
-5. times: the kernel, its plain version and the whole path, with CUDA
-   events after a warm-up, beside the kernel's bound on this card;
+5. times: the kernel (whole and each launch on its own), its plain version,
+   a cuFFT yardstick of the filterbank stage and the whole path, with CUDA
+   events after a warm-up, beside the kernel's bound on this card, at the
+   serving shape, the flagship's raw-audio training window, serving at
+   20 ms and 8 clips of 10 minutes; the kernel and its plain version are
+   timed alike (events around back-to-back calls, host work included), and
+   the kernel and its launches also on the device alone, with the wrapper's
+   host time per call;
 6. a JSON line of the kernels, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -39,6 +45,7 @@ from microwakeword_tpu_torch import _build
 from microwakeword_tpu_torch.evaluate import roc, streaming_eval
 from microwakeword_tpu_torch.frontend import constants as FC
 from microwakeword_tpu_torch.frontend import gate, kernel, plain
+from microwakeword_tpu_torch.frontend.ab import cuda_ms, queued_ms
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
 from microwakeword_tpu_torch.models.mixednet import stream_phase
@@ -50,6 +57,10 @@ IGNORE_SLICES_AFTER_ACCEPT = 25
 SLIDING_WINDOW = 5
 STREAM_ATOL = 2e-4  # streamed vs non-streaming probabilities (tests/test_models.py)
 CLIP_ATOL = 1e-5  # one stream alone vs the same stream in the batch
+# The flagship's raw-audio training batch (batch_size 128): 204 frames at 10 ms.
+TRAIN_WINDOW = (128, 32960)
+# Whole clips as the dataset builder passes them: 8 of 10 minutes, 1,875 tiles.
+LONG_CLIPS = (8, 600 * FC.SAMPLE_RATE)
 
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -63,19 +74,6 @@ CELL_FLOPS = 2 + 3 + 24
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def device_profile(fn):
@@ -123,32 +121,44 @@ def flagship_state(seed: int) -> tuple:
     return bundle, convert.flax_to_state(variables)
 
 
+def frontend_flops_per_hop() -> float:
+    """The least FP32 operations per hop of the micro-frontend's function.
+
+    The window (480 multiplies); the 512-point real FFT as a packed
+    256-point complex split-radix FFT (4 M log2 M - 6 M + 8 operations,
+    M = 256) and its split step to 257 bins (14 for each pair of bins k,
+    256 - k with 0 < k < 128, the halvings folded into the twiddles, and 2
+    for bins 0 and 256); the energy of 257 bins (3 each); the mel filters'
+    nonzero taps (2 each: every bin feeds at most 2 channels); and
+    CELL_FLOPS per feature cell.  That is 11,767, less than the kernel does
+    (csrc/frontend.cu counts its own), as a bound must be.
+    """
+    m = FC.FFT_SIZE // 2
+    fft = 4 * m * np.log2(m) - 6 * m + 8 + 14 * (m // 2 - 1) + 2
+    mel_taps = np.count_nonzero(FC.mel_filterbank_matrix())
+    return float(FC.WINDOW_SAMPLES + fft + 3 * FC.N_FFT_BINS + 2 * mel_taps
+                 + CELL_FLOPS * FC.NUM_CHANNELS)
+
+
 def frontend_bound_ms(batch: int, samples: int, frames: int, audio_bytes: int):
     """Least time for the micro-frontend's function on this card: the larger
-    of the FP32 operations it needs over the FP32 peak and its bytes (PCM in
-    once, features out once) over the memory rate.
-
-    Per hop it needs the window (480 multiplies), a 512-point real FFT
-    (2.5 N log2 N operations), the energy of 257 bins (3 each), the mel
-    filters' nonzero taps (2 each: every bin feeds at most 2 channels) and
-    CELL_FLOPS per feature cell, far less than the kernel's dense DFT.
-    """
-    fft = 2.5 * FC.FFT_SIZE * np.log2(FC.FFT_SIZE)
-    mel_taps = np.count_nonzero(FC.mel_filterbank_matrix())
-    per_hop = (FC.WINDOW_SAMPLES + fft + 3 * FC.N_FFT_BINS + 2 * mel_taps
-               + CELL_FLOPS * FC.NUM_CHANNELS)
-    flops = batch * frames * per_hop
+    of its FP32 operations (``frontend_flops_per_hop``) over the FP32 peak
+    and its bytes (PCM in once, features out once) over the memory rate."""
+    flops = batch * frames * frontend_flops_per_hop()
     nbytes = batch * samples * audio_bytes + batch * frames * FC.NUM_CHANNELS * 4
     ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def dense_dft_ms(batch: int, frames: int) -> float:
-    """The kernel's own dense DFT + mel FLOPs (2*480*257 + 257*40 MACs per
-    hop) over the FP32 peak: a utilization figure for its algorithm, not a
-    bound on the function."""
-    macs = 2 * FC.WINDOW_SAMPLES * FC.N_FFT_BINS + FC.N_FFT_BINS * FC.NUM_CHANNELS
-    return batch * frames * 2 * macs / PEAK_FP32_FLOPS * 1e3
+def cufft_filterbank(audio: torch.Tensor, step_ms: int, window: torch.Tensor) -> torch.Tensor:
+    """The filterbank stage through cuFFT, a yardstick timed here and used
+    nowhere in the package: Hann-windowed frames, rfft zero-padded to 512,
+    re^2 + im^2, the mel product, sqrt / 8."""
+    mel = plain._device_constants(audio.device)[2]
+    frames = plain.frame_audio(audio.to(torch.float32), step_ms) * window
+    spec = torch.fft.rfft(frames, n=FC.FFT_SIZE)
+    energy = spec.real * spec.real + spec.imag * spec.imag
+    return torch.sqrt(torch.clamp(energy @ mel, min=0.0)) / 8.0
 
 
 def main() -> int:
@@ -186,6 +196,10 @@ def main() -> int:
     pcm = torch.from_numpy(pcm_np).to(dev)
     floats = rng.uniform(-0.9, 0.9, (2, 8000)).astype(np.float32)
     floats[0, :4] = [0.5 / 32768, 1.5 / 32768, -2.5 / 32768, 1.2]  # halves, clip
+    train_np = synthetic_pcm(rng, *TRAIN_WINDOW)
+    t_tone = np.arange(48480) / FC.SAMPLE_RATE
+    tones = np.round(30000.0 * np.sin(2 * np.pi * np.array([[250.0], [1000.0], [3300.0], [7000.0]])
+                                      * t_tone + rng.uniform(0, 2 * np.pi, (4, 1)))).astype(np.int16)
     cases = [
         ("10ms multi-tile", 10, rng.integers(-25000, 25000, (3, 48480)).astype(np.int16)),
         ("20ms multi-tile", 20, rng.integers(-25000, 25000, (3, 48480)).astype(np.int16)),
@@ -193,6 +207,11 @@ def main() -> int:
         ("20ms ragged tail", 20, rng.integers(-8000, 8000, (2, 480 + 320 * 40 + 201)).astype(np.int16)),
         ("N < 480", 10, rng.integers(-8000, 8000, (2, 300)).astype(np.int16)),
         ("float input", 10, floats),
+        ("full-scale noise", 10, rng.integers(-32767, 32768, (8, 48480)).astype(np.int16)),
+        ("pure tones, near-silent channels", 10, tones),
+        ("training window", 10, train_np),
+        ("2-minute clips, 375 tiles", 10, rng.integers(-20000, 20000, (2, 120 * FC.SAMPLE_RATE)).astype(np.int16)),
+        ("main path shape at 20ms", 20, pcm_np),
         ("main path shape", STEP_MS, pcm_np),
     ]
     print(f"phase 3 tolerance: Q6 gate (|du| <= 1 or one Q6 level per cell, "
@@ -253,10 +272,48 @@ def main() -> int:
     print(f"phase 4 accepts at cutoffs 0.5/0.8/0.9: {counts[50]:.0f}/{counts[80]:.0f}/"
           f"{counts[90]:.0f} over {hours * 3600:.1f} s", flush=True)
 
-    # 5. times at the main path's shape
+    # 5. times: the kernel at four shapes, whole and launch by launch
+    long_np = rng.integers(-20000, 20000, LONG_CLIPS).astype(np.int16)
+    shapes = [("serving", pcm, STEP_MS), ("training window", torch.from_numpy(train_np).to(dev), 10),
+              ("serving 20ms", pcm, 20), ("long clips", torch.from_numpy(long_np).to(dev), 10)]
+    times = {}
+    window = torch.from_numpy(FC.hann_window().astype(np.float32)).to(dev)
     with torch.inference_mode():
-        kernel_ms = cuda_ms(lambda: kernel.frontend_batch(pcm, step_ms=STEP_MS), 20)
-        plain_ms = cuda_ms(lambda: plain.frontend_batch(pcm, step_ms=STEP_MS), 5)
+        for label, x, step in shapes:
+            sf, ends = kernel.stage_a(x, step)
+            carries = kernel.stage_carry(ends)
+            call = lambda: kernel.frontend_batch(x, step_ms=step)  # noqa: E731
+            tm = dict(
+                # the kernel and plain alike: events around 20 back-to-back
+                # calls, host work included (the plain version copies a
+                # scalar from the host, which waits for the device)
+                kernel=cuda_ms(call, 20),
+                plain=cuda_ms(lambda: plain.frontend_batch(x, step_ms=step), 20),
+                a=queued_ms(lambda: kernel.stage_a(x, step), 50)[0],
+                carry=queued_ms(lambda: kernel.stage_carry(ends), 50)[0],
+                b=queued_ms(lambda: kernel.stage_b(sf, carries), 50)[0],
+                cufft=queued_ms(lambda: cufft_filterbank(x, step, window), 20)[0],
+            )
+            tm["device"], tm["host_us"] = queued_ms(call, 50)
+            nf = FC.num_frames(x.shape[1], FC.hop_samples(step))
+            want = plain.scaled_filterbank(plain.frame_audio(x.to(torch.float32), step))
+            yard_err = float((cufft_filterbank(x, step, window) - want).abs().max() / want.abs().max())
+            del want
+            tm["bound"], tm["bound_by"] = frontend_bound_ms(x.shape[0], x.shape[1], nf, x.element_size())
+            times[label] = tm
+            print(f"phase 5 frontend {label} {list(x.shape)} int16 at {step} ms, T={nf}: kernel "
+                  f"{tm['kernel']:.4f} ms, plain {tm['plain']:.4f} ms (both: events around 20 "
+                  f"back-to-back calls); kernel on the device alone {tm['device']:.4f} ms (A "
+                  f"{tm['a']:.4f} + S {tm['carry']:.4f} + B {tm['b']:.4f}, "
+                  f"{kernel.LAUNCHES_PER_CALL} launches), wrapper host time "
+                  f"{tm['host_us']:.1f} us per call; bound {tm['bound']:.5f} ms ({tm['bound_by']}; "
+                  f"roofline share {tm['bound'] / tm['device']:.4f} of the device time, "
+                  f"{tm['bound'] / tm['kernel']:.4f} of the call); cuFFT filterbank-stage "
+                  f"yardstick on the device alone {tm['cufft']:.4f} ms (max|d| against plain "
+                  f"{yard_err:.2e} of the max); library: none ({smi})", flush=True)
+        del long_np, shapes
+        kernel_ms, plain_ms = times["serving"]["kernel"], times["serving"]["plain"]
+        bound_ms, bound_by = times["serving"]["bound"], times["serving"]["bound_by"]
         scan_ms = cuda_ms(lambda: bundle.stream_scan(model.module, feats), 3)
         accept_ms = cuda_ms(lambda: streaming_eval.ambient_accept_counts(
             [probs[..., 0]], roc.DEFAULT_CUTOFFS, IGNORE_SLICES_AFTER_ACCEPT,
@@ -270,13 +327,6 @@ def main() -> int:
                 SLIDING_WINDOW, stride=bundle.stride, step_s=STEP_MS / 1000)
 
         path_ms = cuda_ms(whole_path, 3)
-    bound_ms, bound_by = frontend_bound_ms(STREAMS, pcm.shape[1], frames, pcm.element_size())
-    dense_ms = dense_dft_ms(STREAMS, frames)
-    print(f"phase 5 frontend [{STREAMS}, {pcm.shape[1]}] int16: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; roofline share "
-          f"{bound_ms / kernel_ms:.4f}); the kernel's dense DFT at the FP32 peak "
-          f"{dense_ms:.4f} ms (share {dense_ms / kernel_ms:.4f}); library: none, "
-          f"no single PyTorch call computes the micro-frontend ({smi})")
     print(f"phase 5 path: frontend {kernel_ms:.3f} ms + stream_scan {scan_ms:.3f} ms + "
           f"accept counts {accept_ms:.3f} ms; whole path {path_ms:.3f} ms for "
           f"{STREAMS * CLIP_S} audio-s ({smi})", flush=True)
@@ -294,7 +344,12 @@ def main() -> int:
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
         max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
+        bound_by=bound_by, library_ms=None, ms_a=times["serving"]["a"],
+        ms_b=times["serving"]["b"], ms_carry=times["serving"]["carry"],
+        ms_device=times["serving"]["device"], host_us_per_call=times["serving"]["host_us"],
+        launches_per_call=kernel.LAUNCHES_PER_CALL,
+        ms_train_window=times["training window"]["kernel"],
+        bound_ms_train_window=times["training window"]["bound"],
     )]
     print(smi)
     print(json.dumps({"kernels": kernels}))
