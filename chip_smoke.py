@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving path on one CUDA card and checks it.
+"""Drives the port's serving and training paths on one CUDA card and checks them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -26,22 +26,52 @@ printing its own lines; any failure exits non-zero:
    timed alike (events around back-to-back calls, host work included), and
    the kernel and its launches also on the device alone, with the wrapper's
    host time per call;
-6. a JSON line of the kernels, then the last line
+6. training at the flagship's full width: a synthetic ragged store from the
+   seed (about 5.6 M training frames, positives with energy in the high
+   channels, negatives in the low ones, positive-band bursts in two
+   validation ambient tracks), then the CLI's ``run()`` with the notebook's
+   recipe (batch 128, SpecAugment 5 x 2, class weights 1/20, sampling
+   weights 2/10) over two phases of 200 and 100 steps, eval every 100;
+   checks that the loss falls below half its step-0 value, the last train
+   accuracy and the last eval's validation accuracy exceed 0.9, the
+   artifacts exist and the streamed AUC is finite, and that checkpoint
+   selection ranked the evals and run() scored the selected weights
+   (check_selection); then, for the trained model, ms per step by CUDA
+   events over 50 steps, a torch.profiler window of 20 steps (busy share, kernels per
+   step, the five largest kernels), each layer of the step alone under the
+   profiler (sampler, forward, backward, Adam, step metrics: kernels and
+   the operators with the most host time), 10 steps under
+   ``torch.cuda.set_sync_debug_mode("error")`` and the peak memory;
+7. the step on the card against the step on the CPU from the seed's initial
+   weights on one batch: in float64, the step-0 loss, the updated BatchNorm
+   statistics, the step-0 gradient and the flat parameters after 5 steps,
+   each to 1e-9; in float32 (TF32 off), the step-0 loss and the statistics,
+   with the gradient and the 5-step parameters printed against float64;
+8. a JSON line of the kernels, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from microwakeword_tpu_torch import _build
+from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.config import derive_config
+from microwakeword_tpu_torch.data import sampler
+from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.evaluate import roc, streaming_eval
 from microwakeword_tpu_torch.frontend import constants as FC
 from microwakeword_tpu_torch.frontend import gate, kernel, plain
@@ -49,6 +79,8 @@ from microwakeword_tpu_torch.frontend.ab import cuda_ms, queued_ms
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
 from microwakeword_tpu_torch.models.mixednet import stream_phase
+from microwakeword_tpu_torch.train import loop as training
+from microwakeword_tpu_torch.train import metrics as M
 
 STREAMS = 64
 CLIP_S = 10
@@ -70,6 +102,34 @@ PEAK_BYTES_PER_S = 3.35e12
 # the EMA (3) and plain._agc_output's elementwise operations (24).
 CELL_FLOPS = 2 + 3 + 24
 
+# Phase 6: the synthetic store, (clips, least frames, most frames) per split.
+STORE = {
+    "pos": {"training": (4000, 150, 250), "validation": (500, 150, 250), "testing": (100, 150, 250)},
+    "neg": {"training": (16000, 100, 500), "validation": (500, 100, 500), "testing": (100, 100, 500),
+            "validation_ambient": (20, 6000, 6000), "testing_ambient": (4, 6000, 6000)},
+}
+# The first AMBIENT_BURSTS[0] validation_ambient tracks carry
+# AMBIENT_BURSTS[1] bursts of AMBIENT_BURSTS[2] frames with a positive clip's
+# energy, so a confident model has false accepts there and checkpoint
+# selection ranks the evals instead of freezing at the first.
+AMBIENT_BURSTS = (2, 10, 120)
+FLAGSHIP_FLAGS = ["mixednet", "--pointwise_filters", "64,64,64,64", "--repeat_in_block", "1,1,1,1",
+                  "--mixconv_kernel_sizes", "[5], [7,11], [9,15], [23]",
+                  "--residual_connection", "0,0,0,0", "--first_conv_filters", "32",
+                  "--first_conv_kernel_size", "5", "--stride", "3"]
+TIMED_STEPS, PROFILED_STEPS, SYNC_CHECKED_STEPS = 50, 20, 10
+# Phase 7, the card against the CPU from the seed's initial weights on one
+# batch.  The step runs in float64 on both devices, where a wrong forward,
+# backward or update cannot hide inside rounding: the step-0 loss, the
+# BatchNorm statistics it updates, its gradient and the parameters after 5
+# steps are held to PARITY_F64.  The float32 step (TF32 off), the one that
+# trains, is held on its step-0 loss and statistics, a forward that differs
+# only by the order of float32 sums; its gradient and 5-step parameters are
+# printed beside the float64 ones as context.
+PARITY_STEPS = 5
+PARITY_F64 = 1e-9  # relative for the loss and the gradient's norm, else absolute
+PARITY_LOSS_RTOL = 1e-5
+PARITY_STATS_RTOL, PARITY_STATS_ATOL = 1e-5, 1e-6
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -78,7 +138,7 @@ def check(cond: bool, msg: str) -> None:
 
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (wall ms, summed device
-    kernel ms, the five kernels with the most device time)."""
+    kernel ms, the five kernels with the most device time, kernel launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -90,7 +150,342 @@ def device_profile(fn):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in kernels[:5]]
-    return wall_ms, device_ms, top
+    return wall_ms, device_ms, top, sum(e.count for e in kernels)
+
+
+def host_profile(fn, calls: int):
+    """``calls`` calls of ``fn`` under torch.profiler, host side only: the
+    three operators with the most self CPU time, (name, ms per call, calls
+    per call)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:3]
+    return [(e.key[:40], e.self_cpu_time_total / 1e3 / calls, e.count / calls) for e in ops]
+
+
+def write_store(root: str, rng: np.random.Generator) -> int:
+    """The phase 6 store (STORE) under ``root``; returns the training frames.
+    Positives carry energy in the high channels, negatives in the low ones
+    (tests/test_train.py's pattern); validation_ambient has AMBIENT_BURSTS."""
+    training_frames = 0
+    for name, splits in STORE.items():
+        for split, (count, lo, hi) in splits.items():
+            lengths = rng.integers(lo, hi + 1, count)
+            data = rng.integers(0, 80, (int(lengths.sum()), 40), dtype=np.uint16)
+            data[:, 20:] += 300 if name == "pos" else 0
+            data[:, :20] += 0 if name == "pos" else 300
+            if split == "validation_ambient":
+                tracks, bursts, span = AMBIENT_BURSTS
+                for start in (np.cumsum(lengths) - lengths)[:tracks]:
+                    for k in range(1, bursts + 1):
+                        s = start + k * lo // (bursts + 1)
+                        data[s : s + span, 20:] += 300
+                        data[s : s + span, :20] -= 300
+            RaggedSpectrogramStore.create(os.path.join(root, name, split, "w_mmap"),
+                                          np.split(data, np.cumsum(lengths)[:-1]))
+            training_frames += len(data) if split == "training" else 0
+    return training_frames
+
+
+def recipe(root: str, seed: int) -> dict:
+    """The notebook's training recipe (notebooks/basic_training_notebook.ipynb)
+    over two phases."""
+    feature = dict(penalty_weight=1.0, type="mmap")
+    return {
+        "train_dir": os.path.join(root, "run"), "window_step_ms": 10, "clip_duration_ms": 1500,
+        "seed": seed, "training_steps": [200, 100], "learning_rates": [0.001, 0.0001],
+        "batch_size": 128, "steps_per_call": 1, "eval_step_interval": 100,
+        "time_mask_max_size": [5], "time_mask_count": [2], "freq_mask_max_size": [5],
+        "freq_mask_count": [2], "positive_class_weight": [1], "negative_class_weight": [20],
+        "minimization_metric": "ambient_false_positives_per_hour",
+        "maximization_metric": "average_viable_recall", "target_minimization": 0.5,
+        "features": [
+            dict(feature, features_dir=os.path.join(root, "pos"), truth=True, sampling_weight=2.0,
+                 truncation_strategy="truncate_start"),
+            dict(feature, features_dir=os.path.join(root, "neg"), truth=False, sampling_weight=10.0,
+                 truncation_strategy="random"),
+        ],
+    }
+
+
+def phase_training(dev: torch.device, smi: str, seed: int):
+    """Phase 6; returns (bundle, corpus, first phase) for phase 7."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        frames = write_store(root, np.random.default_rng(seed))
+        print(f"phase 6 store: {frames:,} training frames ({frames * 80 / 1e6:.1f} MB of uint16), "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        flags = CLI.build_parser().parse_args(
+            ["--training_config", os.path.join(root, "unused.yaml"), "--test_tf_nonstreaming", "1",
+             "--device", dev.type]
+            + FLAGSHIP_FLAGS)
+        config = derive_config(recipe(root, seed), CLI.model_config_from_flags(flags))
+        length, batch = config["spectrogram_length"], config["batch_size"]
+        check(length == 204, f"flagship input frames {length}")
+        bundle = build_model("mixednet", config["model_config"])
+        phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = CLI.run(flags, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        history = out["history"]
+        run_dir = config["train_dir"]
+        # the step-0 loss of the recipe: the seed's initial model, one step
+        handler = FeatureHandler(config)
+        packed = handler.pack_training(dev)
+        init = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+        first = training.make_train_step(bundle, init, packed, batch, length,
+                                         generator=torch.Generator(device=dev).manual_seed(seed))
+        loss0 = float(first.step(**phase)["loss"])
+        del first, init
+        for name in ("best_weights.pt", "metrics.jsonl", os.path.join("streaming", "streaming_roc.txt")):
+            check(os.path.exists(os.path.join(run_dir, name)), f"{name} was not written")
+        last = history[-1]["train"]
+        auc = out["streaming_roc"]["auc"]
+        print(f"phase 6 run(): {sum(p['steps'] for p in training.resolve_schedules(config))} steps "
+              f"of batch {batch} x {length} frames, wall {wall:.2f} s with evals and the streamed "
+              f"ROC; peak memory {peak / 2**20:.1f} MiB ({smi})")
+        for rec in history:
+            v = rec["validation"]
+            print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
+                  f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f} "
+                  f"auc {v['auc']:.5f} faph {v['ambient_false_positives_per_hour']:.3f} "
+                  f"avr {v['average_viable_recall']:.4f}; {rec['steps_per_sec']:.1f} steps/s "
+                  f"(host clock, no sync)")
+        print(f"phase 6 streamed test ROC AUC {auc:.5f}; test accuracy "
+              f"{out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
+        check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
+        check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
+        # eval mode, on running statistics: 0.99 ** 300 of the initial ones remain
+        val_acc = history[-1]["validation"]["accuracy"]
+        check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
+        check(math.isfinite(auc), f"streamed AUC {auc}")
+        check_selection(bundle, config, handler, out, dev)
+        state = {k: v.cpu() for k, v in training.load_weights(
+            bundle, os.path.join(run_dir, "best_weights.pt"), dev).state_dict().items()}
+
+    # the trained model's step: CUDA events, the profiler, the sync check
+    model = bundle.load(state, device=dev)
+    train_step = training.make_train_step(bundle, model, packed, batch, length,
+                                    generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    for _ in range(10):
+        train_step.step(**phase)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        train_step.step(**phase)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    def profiled_steps():
+        for _ in range(PROFILED_STEPS):
+            train_step.step(**phase)
+
+    wall_ms, device_ms, top, launches = device_profile(profiled_steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SYNC_CHECKED_STEPS):
+            metrics = train_step.step(**phase)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(math.isfinite(float(metrics["loss"])), "loss after the sync check")
+    print(f"phase 6 step (flagship, batch {batch}, SpecAugment on, TF32 off): {step_ms:.4f} ms "
+          f"per step by CUDA events over {TIMED_STEPS} steps ({1e3 / step_ms:.1f} steps/s; host "
+          f"clock {host_ms:.4f} ms) ({smi})")
+    print(f"phase 6 profile of {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms under the profiler, "
+          f"device kernels {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}, "
+          f"{launches / PROFILED_STEPS:.1f} kernels per step"
+          + ("" if device_ms else " (the profiler saw no device time: not measured)"))
+    for key, ms, count in top:
+        print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
+    for name, (wall, device, kernels, host_top) in step_breakdown(train_step, phase).items():
+        print(f"phase 6 layer {name}: {wall:.4f} ms per call under the profiler, device "
+              f"{device:.4f} ms, {kernels:.1f} kernels; most host time: " + "; ".join(
+                  f"{op} {ms:.4f} ms x{n:.0f}" for op, ms, n in host_top))
+    print(f"phase 6 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
+          f"raised nothing", flush=True)
+    return bundle, packed, phase
+
+
+def check_selection(bundle, config: dict, handler, out: dict, dev: torch.device) -> None:
+    """Phase 6's checkpoint selection and what run() scored with it:
+    best_weights.pt holds the eval that the two-step rule picks from the
+    evals' records, which do not all tie; run()'s non-streaming test accuracy
+    is that of these weights, which rank the test clips (AUC); and the
+    streamed ROC's false-rejection rates are those of one batched scan of the
+    test positives (streaming is causal, so zero padding at the end changes
+    no step kept), to one positive for rounding at a cutoff."""
+    run_dir, length = config["train_dir"], config["spectrogram_length"]
+    chosen, best_min, best_max = None, 10000.0, 0.0
+    for rec in out["history"]:
+        v = rec["validation"]
+        current = (v["ambient_false_positives_per_hour"], v["average_viable_recall"])
+        if M.is_new_best(*current, best_min, best_max, config["target_minimization"]):
+            chosen, (best_min, best_max) = rec["step"], current
+    check(any(r["validation"]["ambient_false_positives_per_hour"] > 0
+              or r["validation"]["average_viable_recall"] < 1 for r in out["history"]),
+          "selection saturated at every eval")
+    best = torch.load(os.path.join(run_dir, "best_weights.pt"), weights_only=True)
+    crumbs = glob.glob(os.path.join(run_dir, "train", f"*_weights_{chosen}.pt"))
+    check(len(crumbs) == 1, f"the breadcrumb of step {chosen}: {crumbs}")
+    crumb = torch.load(crumbs[0], weights_only=True)
+    check(all(torch.equal(best[k], crumb[k]) for k in crumb), f"best_weights.pt is not step {chosen}")
+
+    selected = bundle.load(best, device=dev)
+    test_x, test_y, _ = handler.get_data("testing", batch_size=config["batch_size"],
+                                         features_length=length, truncation_strategy="truncate_start")
+    probs = training.make_eval_fn(bundle)(selected, test_x)
+    test_acc = float(np.mean((probs > 0.5) == (test_y > 0.5)))
+    test_auc = float(M.binary_metrics(torch.from_numpy(probs),
+                                      torch.from_numpy(test_y.astype(np.float32)))["auc"])
+    check(out["accuracy"]["accuracy"] == test_acc,
+          f"run()'s test accuracy {out['accuracy']['accuracy']}, the selected weights' {test_acc}")
+    check(test_auc >= 0.99, f"the selected weights' test AUC {test_auc}")
+
+    tracks, labels, _ = handler.get_data("testing", batch_size=config["batch_size"],
+                                         features_length=length, truncation_strategy="none")
+    positives = [t for t, y in zip(tracks, labels) if y > 0.5]
+    steps = [len(t) // bundle.stride for t in positives]
+    x = np.zeros((len(positives), max(steps) * bundle.stride, positives[0].shape[1]), np.float32)
+    for i, t in enumerate(positives):
+        x[i, : steps[i] * bundle.stride] = t[: steps[i] * bundle.stride]
+    scanned = bundle.stream_scan(selected, torch.from_numpy(x).to(dev))[..., 0].cpu()
+    peaks = []
+    for i, n in enumerate(steps):
+        ma = roc.moving_average(scanned[i, IGNORE_SLICES_AFTER_ACCEPT:n], SLIDING_WINDOW)
+        if ma.numel():
+            peaks.append(float(ma.max()))
+    frr_ref = 1.0 - (np.asarray(peaks)[:, None] > roc.DEFAULT_CUTOFFS[None, :]).mean(axis=0)
+    frr = out["streaming_roc"]["frr_at_cutoffs"]
+    frr_err = float(np.abs(frr - frr_ref).max())
+    mid = int(np.searchsorted(roc.DEFAULT_CUTOFFS, np.median(peaks))) - 1  # below the median peak
+    print(f"phase 6 selection: step {chosen} of {[r['step'] for r in out['history']]} (faph "
+          f"{best_min:.3f}, avr {best_max:.4f}); its test accuracy {test_acc:.4f}, test AUC "
+          f"{test_auc:.5f}; streamed FRR at cutoff {roc.DEFAULT_CUTOFFS[mid]:.2f} {frr[mid]:.4f} "
+          f"(a batched scan: {frr_ref[mid]:.4f}), at 0.50 {frr[50]:.4f}; max|d| over the "
+          f"cutoffs {frr_err:.4f} (tolerance {1 / len(peaks):.4f})", flush=True)
+    check(len(peaks) == out["streaming_roc"]["positive_count"], "streamed positives counted")
+    check(frr_err <= 1.0 / len(peaks), f"streamed FRR against a batched scan: {frr_err}")
+
+
+def step_breakdown(step, phase: dict, calls: int = 20) -> dict:
+    """Each layer of the train step run alone ``calls`` times under the
+    profiler: {layer: (wall ms per call, device ms per call, kernels per
+    call)}.  The layers are the step's own code, in its order; Adam updates
+    ``step``'s weights as the step does."""
+    masks, opt = step._split_phase(phase)
+    bundle, model = step.bundle, step.model
+    feats, labels, pen = sampler.sample_batch(step.packed, step.generator, step.batch_size,
+                                              step.features_length, **masks)
+    weights = pen * torch.where(labels > 0.5, opt["positive_class_weight"],
+                                opt["negative_class_weight"])
+
+    def loss():
+        return training.weighted_bce(bundle.forward_train(model, feats), labels, weights)
+
+    def adam():
+        with torch.no_grad():
+            step._adam(opt["learning_rate"])
+
+    probs = bundle.forward_train(model, feats).detach()
+    layers = {
+        "sampler": lambda: sampler.sample_batch(step.packed, step.generator, step.batch_size,
+                                                step.features_length, **masks),
+        "forward + loss": loss,
+        "forward + loss + backward": lambda: torch.autograd.grad(loss(), step.params),
+        "Adam": adam,
+        "step metrics": lambda: M.binary_metrics(probs, labels),
+    }
+    out = {}
+    for name, fn in layers.items():
+        for _ in range(3):
+            fn()
+        def run(fn=fn):  # keeps no result: a kept graph would hold its activations
+            for _ in range(calls):
+                fn()
+
+        wall_ms, device_ms, _, launches = device_profile(run)
+        out[name] = (wall_ms / calls, device_ms / calls, launches / calls, host_profile(fn, calls))
+    return out
+
+
+def parity_run(bundle, state: dict, batch: tuple, phase: dict, where, dtype) -> tuple:
+    """PARITY_STEPS steps of the train step on one gathered batch from
+    ``state``, in ``dtype`` on ``where``: (step-0 loss, BatchNorm statistics
+    after step 0, step-0 gradient, flat parameters after the last step), the
+    tensors copied to the CPU in float64."""
+    model = bundle.load(state, device=where).to(dtype)
+    step = training.make_train_step(bundle, model, None, len(batch[2]), batch[0].shape[1])
+    tensors = tuple(t.to(where) for t in batch)
+
+    def f64(t):
+        return t.detach().to("cpu", torch.float64, copy=True)
+
+    loss0 = float(step.step_on_batch(*tensors, **phase)["loss"])
+    stats = {k: f64(v) for k, v in model.state_dict().items() if k.endswith((".mean", ".var"))}
+    grad = f64(step.grad)
+    for _ in range(PARITY_STEPS - 1):
+        step.step_on_batch(*tensors, **phase)
+    return loss0, stats, grad, f64(step.flat)
+
+
+def phase_parity(bundle, packed, phase: dict, dev: torch.device, smi: str, seed: int):
+    """Phase 7: the step on the card against the step on the CPU, in float64
+    and in float32."""
+    length, batch = bundle.spectrogram_length, 128
+    state = bundle.init(torch.Generator().manual_seed(seed), device="cpu").state_dict()
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rows, valid, labels, weights = sampler.sample_batch_indices(packed, gen, batch, length)
+    on_cpu = tuple(t.cpu() for t in (packed.frames[rows], valid, labels, weights))
+    plain_phase = dict(phase, time_mask_count=0, freq_mask_count=0)  # no draws: one batch
+    flat_0 = torch.cat([v.reshape(-1) for k, v in state.items()
+                        if not k.endswith((".mean", ".var"))]).double()
+    print(f"phase 7 card vs CPU, flagship from the seed's initial weights, one batch of {batch}, "
+          f"{PARITY_STEPS} steps at lr {plain_phase['learning_rate']} ({smi}):")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        (loss_c, stats_c, grad_c, flat_c), (loss_p, stats_p, grad_p, flat_p) = (
+            parity_run(bundle, state, on_cpu, plain_phase, where, dtype) for where in (dev, "cpu"))
+        loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+        stats_err = max(float((stats_c[k] - stats_p[k]).abs().max()) for k in stats_p)
+        grad_rel = float((grad_c - grad_p).norm() / grad_p.norm())
+        diff = (flat_c - flat_p).abs()
+        update_rel = float(diff.norm() / (flat_p - flat_0).norm())
+        out[dtype] = (grad_c, grad_p, flat_c, flat_p)
+        print(f"  {str(dtype)[6:]}: step-0 loss {loss_c:.10f} vs {loss_p:.10f}, rel {loss_rel:.2e}; "
+              f"BatchNorm statistics max|d| {stats_err:.2e}; step-0 gradient |d| / |g| "
+              f"{grad_rel:.2e}; parameters after {PARITY_STEPS} steps max|d| {float(diff.max()):.2e}, "
+              f"|d| / |update| {update_rel:.2e}", flush=True)
+        if dtype == torch.float64:
+            check(loss_rel <= PARITY_F64, f"float64 step-0 loss rel {loss_rel}")
+            check(stats_err <= PARITY_F64, f"float64 BatchNorm statistics max|d| {stats_err}")
+            check(grad_rel <= PARITY_F64, f"float64 step-0 gradient rel {grad_rel}")
+            check(float(diff.max()) <= PARITY_F64,
+                  f"float64 parameters after {PARITY_STEPS} steps max|d| {float(diff.max())}")
+        else:
+            check(loss_rel <= PARITY_LOSS_RTOL, f"float32 step-0 loss rel {loss_rel}")
+            for k in stats_p:
+                check(torch.allclose(stats_c[k], stats_p[k], rtol=PARITY_STATS_RTOL,
+                                     atol=PARITY_STATS_ATOL), f"float32 {k} after step 0")
+    grad64 = out[torch.float64][1]
+    g_c, g_p, f_c, f_p = out[torch.float32]
+    f64_flat = out[torch.float64][3]
+    print(f"  context, float32 against the float64 step on the CPU: step-0 gradient |d| / |g| card "
+          f"{float((g_c - grad64).norm() / grad64.norm()):.2e}, CPU "
+          f"{float((g_p - grad64).norm() / grad64.norm()):.2e}; parameters after {PARITY_STEPS} "
+          f"steps max|d| card {float((f_c - f64_flat).abs().max()):.2e}, CPU "
+          f"{float((f_p - f64_flat).abs().max()):.2e} (tolerances: float64 {PARITY_F64}; float32 "
+          f"loss rel {PARITY_LOSS_RTOL}, statistics rtol {PARITY_STATS_RTOL} atol "
+          f"{PARITY_STATS_ATOL})", flush=True)
 
 
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
@@ -331,7 +726,7 @@ def main() -> int:
           f"accept counts {accept_ms:.3f} ms; whole path {path_ms:.3f} ms for "
           f"{STREAMS * CLIP_S} audio-s ({smi})", flush=True)
     with torch.inference_mode():
-        wall_ms, device_ms, top = device_profile(whole_path)
+        wall_ms, device_ms, top, _ = device_profile(whole_path)
     print(f"phase 5 profile of the whole path: wall {wall_ms:.3f} ms under the profiler, "
           f"device kernels {device_ms:.3f} ms, busy share under the profiler "
           f"{device_ms / wall_ms:.4f}"
@@ -339,7 +734,12 @@ def main() -> int:
     for key, ms, count in top:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
 
-    # 6. the kernels line, then the last line
+    # 6. training at full width; 7. the step on the card against the CPU
+    bundle, packed, phase = phase_training(dev, smi, args.seed)
+    phase_parity(bundle, packed, phase, dev, smi, args.seed)
+    del packed
+
+    # 8. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,

@@ -1,11 +1,16 @@
 """microwakeword_tpu_torch: the PyTorch/CUDA port of microwakeword_tpu.
 
-It runs the serving path of the wake-word system on an NVIDIA H100:
+It runs the wake-word system on an NVIDIA H100:
 
-  16 kHz PCM -> micro-frontend features (a hand-written CUDA kernel,
-  ``frontend.kernel``) -> the streaming MixedNet with ring-buffer state
-  (``models``) -> wake probabilities every ``stride`` frames -> moving
-  average and cooldown accept counting (``evaluate``).
+- serving: 16 kHz PCM -> micro-frontend features (a hand-written CUDA
+  kernel, ``frontend.kernel``) -> the streaming MixedNet with ring-buffer
+  state (``models``) -> wake probabilities every ``stride`` frames -> moving
+  average and cooldown accept counting (``evaluate``);
+- training on precomputed spectrograms: the ragged store (``data``) ->
+  the corpus on the card and its on-device batch draw (``data.sampler``) ->
+  train-mode forward and backward, weighted BCE and flat Adam, validation
+  and two-step checkpoint selection (``train``) -> the streamed test ROC,
+  driven by the ``model_train_eval`` CLI.
 
 The JAX package ``microwakeword_tpu`` is the reference the port is held
 against; this package imports nothing of it (nor of jax/flax/optax) and keeps

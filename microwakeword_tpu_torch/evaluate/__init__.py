@@ -6,4 +6,8 @@ from microwakeword_tpu_torch.evaluate.roc import (  # noqa: F401
     generate_roc_curve,
     moving_average,
 )
-from microwakeword_tpu_torch.evaluate.streaming_eval import ambient_accept_counts  # noqa: F401
+from microwakeword_tpu_torch.evaluate.streaming_eval import (  # noqa: F401
+    ambient_accept_counts,
+    model_accuracy,
+    streaming_model_roc,
+)

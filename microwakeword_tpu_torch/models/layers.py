@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Keras BatchNormalization epsilon (layers.py:40-41).
+# Keras BatchNormalization momentum and epsilon (layers.py:40-41).
+BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 
 
@@ -161,11 +162,14 @@ class StreamBuffer(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with flax semantics and Keras defaults:
-    ``(x - mean) * (rsqrt(var + 1e-3) * scale) + bias`` over the last axis.
+    """BatchNorm with flax semantics and Keras defaults over the last axis:
+    ``(x - mean) * (rsqrt(var + 1e-3) * scale) + bias``.
 
-    The train-mode update (biased batch variance, momentum 0.99) waits for
-    the training slice.
+    ``eval()`` normalises with the running statistics.  ``train()`` takes
+    the statistics of the batch over every axis but the last (batch and time
+    together) with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, and
+    updates the running ones as ``0.99 * running + 0.01 * batch`` with that
+    biased variance (``torch.nn.BatchNorm1d`` uses the unbiased one).
     """
 
     def __init__(self, features: int):
@@ -183,8 +187,17 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + BN_EPSILON) * self.scale
-        return (x - self.mean) * mul + self.bias
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        return (x - mean) * mul + self.bias
 
 
 class PointwiseConv(nn.Module):

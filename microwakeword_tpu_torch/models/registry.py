@@ -2,7 +2,8 @@
 
 A ``ModelBundle`` holds a config and builds the ``nn.Module``; the module's
 parameters and BatchNorm buffers are the model's state, and the same module
-drives the full-sequence forward pass and the streaming step.  The streaming
+drives the training and inference forward passes and the streaming step.
+Modules stay in eval mode between calls.  The streaming
 ring buffers live in an explicit cache dict passed to and returned by
 ``stream_step``.
 """
@@ -47,6 +48,16 @@ class ModelBundle:
     def forward(self, model: mixednet.MixedNet, x: torch.Tensor) -> torch.Tensor:
         """[B, T, F] -> [B, 1] probabilities (running BN stats)."""
         return model(x)
+
+    def forward_train(self, model: mixednet.MixedNet, x: torch.Tensor) -> torch.Tensor:
+        """Training forward: [B, T, F] -> [B, 1] probabilities normalised with
+        the batch's statistics, which also update the BatchNorm buffers.  The
+        module is back in eval mode when it returns."""
+        model.train()
+        try:
+            return model(x)
+        finally:
+            model.eval()
 
     # ---- streaming ----------------------------------------------------
     def stream_init(self, model: mixednet.MixedNet, batch_size: int = 1) -> dict:

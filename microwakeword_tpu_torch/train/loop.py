@@ -1,0 +1,472 @@
+"""Training loop (port of train/loop.py): on-device sampling, the train-mode
+forward and backward, weighted BCE and Adam on one flat parameter vector,
+periodic validation with two-step best-checkpoint selection, and
+checkpoints.
+
+Schedules are padded with their last entry, Adam runs on probabilities'
+weighted BCE, validation runs every ``eval_step_interval`` steps and writes
+the best/last/restore artifacts, as in the reference train.py and the JAX
+package.  The step runs eagerly: the sampler, the model and Adam are stock
+PyTorch ops on the card, and nothing in a step waits for the host.
+
+Checkpoints keep the JAX package's file stems in the port's own format,
+``torch.save`` of plain tensors (``best_weights.pt``, ``last_weights.pt``,
+``restore/ckpt.pt``, ``train/<int(best_min * 10000)>_weights_<step>.pt``).
+The JAX package's migration of per-leaf Adam checkpoints has no port-side
+checkpoints to migrate and is left out.  Options of the JAX ``train()`` that
+this port does not carry raise NotImplementedError naming the ROADMAP queue
+item that brings them; TensorBoard summaries are not written (metrics.jsonl
+holds every eval's record).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from microwakeword_tpu_torch.data import sampler as S
+from microwakeword_tpu_torch.device import resolve_device
+from microwakeword_tpu_torch.train import metrics as M
+
+EPS = 1e-7  # Keras BinaryCrossentropy epsilon
+# optax.adam as the JAX package configures it: Keras' epsilon, outside the
+# square root; eps_root 0.
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
+
+
+def pad_schedule(values, n):
+    """Pad a per-phase list with its last entry (reference train.py:190-204)."""
+    values = list(values)
+    while len(values) < n:
+        values.append(values[-1])
+    return values
+
+
+def resolve_schedules(config: dict) -> list[dict]:
+    """One dict of hyperparameters per training phase."""
+    steps = list(config.get("training_steps") or [20000])
+    n = len(steps)
+    keys = {
+        "learning_rates": [0.001],
+        "mix_up_augmentation_prob": [0.0],
+        "freq_mix_augmentation_prob": [0.0],
+        "time_mask_max_size": [5],
+        "time_mask_count": [2],
+        "freq_mask_max_size": [5],
+        "freq_mask_count": [2],
+        "positive_class_weight": [1.0],
+        "negative_class_weight": [1.0],
+    }
+    resolved = {k: pad_schedule(config.get(k) or dflt, n) for k, dflt in keys.items()}
+    return [
+        {
+            "steps": steps[i],
+            "learning_rate": float(resolved["learning_rates"][i]),
+            "time_mask_max_size": int(resolved["time_mask_max_size"][i]),
+            "time_mask_count": int(resolved["time_mask_count"][i]),
+            "freq_mask_max_size": int(resolved["freq_mask_max_size"][i]),
+            "freq_mask_count": int(resolved["freq_mask_count"][i]),
+            "positive_class_weight": float(resolved["positive_class_weight"][i]),
+            "negative_class_weight": float(resolved["negative_class_weight"][i]),
+        }
+        for i in range(n)
+    ]
+
+
+def weighted_bce(probs: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Keras-style weighted BCE on probabilities: the batch mean of
+    weight * bce (reduction sum_over_batch_size)."""
+    p = torch.clamp(probs.reshape(-1), EPS, 1.0 - EPS)
+    y = labels.reshape(-1)
+    bce = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p))
+    return torch.mean(weights.reshape(-1) * bce)
+
+
+class TrainStep:
+    """The train step over a device-resident corpus (``make_train_step``).
+
+    The module's parameters become views into one flat vector (fp32 in
+    training; a float64 module gives a float64 step, as the card-against-CPU
+    check uses it), and their gradients are gathered into one flat vector,
+    so Adam is a handful of vector ops.  Adam follows optax's ``scale_by_adam`` arithmetic and
+    order: moments ``(1 - b) * g + b * m``, bias correction by
+    ``1 - b ** count``, ``m_hat / (sqrt(v_hat) + eps)``, times ``-lr``.
+    The BatchNorm statistics update in the module's buffers.
+
+    ``step(**phase)`` draws the batch from the corpus with ``generator``;
+    ``step_on_batch`` takes a gathered batch instead (the JAX package's
+    host-streamed form), [steps, B, ...] when ``steps_per_call`` > 1.
+    Either reports the last sub-step's metrics (0-dim tensors).
+    """
+
+    def __init__(self, bundle, model: torch.nn.Module, packed: S.PackedTrainingData | None,
+                 batch_size: int, features_length: int, steps_per_call: int = 1,
+                 generator: torch.Generator | None = None):
+        self.bundle = bundle
+        self.model = model
+        self.packed = packed
+        self.batch_size = int(batch_size)
+        self.features_length = int(features_length)
+        self.steps_per_call = int(steps_per_call)
+        self.generator = generator
+        self.params = list(model.parameters())
+        self.device = self.params[0].device
+        with torch.no_grad():
+            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+            offset = 0
+            for p in self.params:
+                p.data = self.flat[offset : offset + p.numel()].view_as(p)
+                offset += p.numel()
+        self.grad = torch.zeros_like(self.flat)
+        self.mu = torch.zeros_like(self.flat)
+        self.nu = torch.zeros_like(self.flat)
+        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # ---- optimizer state ----------------------------------------------
+    def opt_state(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_opt_state(self, state: dict) -> None:
+        with torch.no_grad():
+            for key, value in self.opt_state().items():
+                value.copy_(state[key])
+
+    # ---- one sub-step ---------------------------------------------------
+    def _adam(self, learning_rate: float) -> None:
+        g = self.grad
+        self.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+        self.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+        self.count.add_(1)
+        count = self.count.to(self.flat.dtype)
+        # true division by 0-dim device tensors, as JAX divides (a Python
+        # scalar divisor becomes a reciprocal multiply on the card)
+        mu_hat = self.mu / (1.0 - torch.pow(ADAM_B1, count))
+        denom = torch.sqrt(self.nu / (1.0 - torch.pow(ADAM_B2, count))).add_(ADAM_EPS)
+        self.flat.add_(mu_hat.div_(denom).mul_(-learning_rate))
+
+    def _sub_step(self, feats, labels, penalties, learning_rate: float,
+                  positive_class_weight: float, negative_class_weight: float):
+        weights = penalties * torch.where(labels > 0.5, positive_class_weight, negative_class_weight)
+        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype))
+        loss = weighted_bce(probs, labels, weights)
+        grads = torch.autograd.grad(loss, self.params)
+        torch.cat([g.reshape(-1) for g in grads], out=self.grad)
+        with torch.no_grad():
+            self._adam(learning_rate)
+        return probs.detach(), labels, loss.detach()
+
+    @staticmethod
+    def _split_phase(phase: dict):
+        masks = {k: phase[k] for k in ("time_mask_max_size", "time_mask_count",
+                                       "freq_mask_max_size", "freq_mask_count")}
+        opt = {k: phase[k] for k in ("learning_rate", "positive_class_weight",
+                                     "negative_class_weight")}
+        return masks, opt
+
+    @staticmethod
+    def _report(last) -> dict:
+        probs, labels, loss = last
+        metrics = M.binary_metrics(probs, labels)
+        metrics["loss"] = loss
+        return metrics
+
+    def step(self, steps: int | None = None, **phase) -> dict:
+        """``steps`` (default steps_per_call) sub-steps on batches sampled
+        on the card; the last sub-step's metrics."""
+        masks, opt = self._split_phase(phase)
+        for _ in range(self.steps_per_call if steps is None else steps):
+            feats, labels, penalties = S.sample_batch(
+                self.packed, self.generator, self.batch_size, self.features_length, **masks)
+            last = self._sub_step(feats, labels, penalties, **opt)
+        return self._report(last)
+
+    def step_on_batch(self, windows, valid, labels, weights, **phase) -> dict:
+        """The step on a gathered batch: windows [B, L, F] int16 (uint16
+        bits), valid [B, L], labels [B], penalty weights [B]; each with a
+        leading [steps_per_call] axis when steps_per_call > 1."""
+        masks, opt = self._split_phase(phase)
+        batches = [(windows, valid, labels, weights)]
+        if self.steps_per_call > 1:
+            batches = list(zip(windows, valid, labels, weights))
+        for w, v, y, pen in batches:
+            feats = S.finish_batch(self.generator, w, v, **masks)
+            last = self._sub_step(feats, y, pen, **opt)
+        return self._report(last)
+
+
+def make_train_step(bundle, model, packed, batch_size: int, features_length: int,
+                    steps_per_call: int = 1, generator: torch.Generator | None = None) -> TrainStep:
+    """The train step over ``packed`` (PackedTrainingData on the model's
+    device); see TrainStep."""
+    return TrainStep(bundle, model, packed, batch_size, features_length, steps_per_call, generator)
+
+
+def make_eval_fn(bundle, eval_batch: int = 1024):
+    """Chunked eval-mode forward: (model, x [N, T, F] tensor or array) ->
+    numpy probabilities [N]."""
+
+    @torch.inference_mode()
+    def eval_probs(model, x) -> np.ndarray:
+        device = next(model.parameters()).device
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        outs = [bundle.forward(model, x[i : i + eval_batch]).reshape(-1)
+                for i in range(0, x.shape[0], eval_batch)]
+        return torch.cat(outs).cpu().numpy() if outs else np.zeros((0,), np.float32)
+
+    return eval_probs
+
+
+def _weights_state(model: torch.nn.Module) -> dict:
+    """The module's parameters and BatchNorm statistics as plain CPU tensors
+    (copies: the parameters are views into the flat vector)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def _save(path: str, obj) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(obj, path)
+
+
+def model_summary(model: torch.nn.Module) -> str:
+    """Per-layer parameter table, the counterpart of the reference's Keras
+    model.summary() (utils.py:131-145)."""
+    lines = [f"{'layer':<60} {'shape':<20} {'params':>10}", "-" * 92]
+    params = dict(model.named_parameters())
+    total = 0
+    for coll, entries in (
+        ("params", params.items()),
+        ("batch_stats", [(k, v) for k, v in model.state_dict().items() if k not in params]),
+    ):
+        for name, leaf in entries:
+            n = leaf.numel()
+            if coll == "params":
+                total += n
+            lines.append(f"{coll + ':' + name:<60} {str(tuple(leaf.shape)):<20} {n:>10,}")
+    lines.append("-" * 92)
+    lines.append(f"Total trainable params: {total:,}")
+    return "\n".join(lines)
+
+
+def _pack_corpus(providers, config: dict, device: torch.device) -> S.PackedTrainingData:
+    """The training corpus on ``device`` (config ``corpus_residency``: auto
+    and hbm keep it there; host streaming is not ported)."""
+    residency = str(config.get("corpus_residency", "auto"))
+    if residency == "host":
+        raise NotImplementedError(
+            "corpus_residency: host is not ported yet: ROADMAP queue item 5, host streaming")
+    if residency not in ("auto", "hbm"):
+        raise ValueError(f"corpus_residency must be auto|hbm|host, got {residency!r}")
+    arrays = S.pack_training_arrays(providers)
+    if device.type == "cuda":
+        nbytes = sum(a.nbytes for a in arrays.values() if hasattr(a, "nbytes"))
+        free, _ = torch.cuda.mem_get_info(device)
+        if nbytes > free:
+            raise ValueError(
+                f"training corpus is {nbytes / 1e6:.1f} MB but the card has {free / 1e6:.1f} MB "
+                "free; host streaming (ROADMAP queue item 5) is not ported yet")
+    return S.upload_training_arrays(arrays, device)
+
+
+def _check_ported(config: dict, mesh) -> None:
+    if config.get("raw_audio_training"):
+        raise NotImplementedError(
+            "raw_audio_training is not ported yet: ROADMAP queue item 4, raw-audio and mixed training")
+    if int(config.get("pool_refresh_steps", 0) or 0) > 0:
+        raise NotImplementedError(
+            "pool_refresh_steps is not ported yet: ROADMAP queue item 5, pool refresh")
+    if mesh not in (None, 1):
+        raise NotImplementedError(
+            f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 7, multi-GPU")
+
+
+def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = False,
+          device=None, mesh: int | None = None):
+    """Trains a model on ``device`` (default the card); returns (model,
+    history).
+
+    config keys follow the reference YAML schema: training_steps,
+    learning_rates, *_mask_*, positive/negative_class_weight, batch_size,
+    spectrogram_length, eval_step_interval, train_dir, minimization_metric,
+    maximization_metric, target_minimization, seed, steps_per_call,
+    profile_dir.  ``mesh`` is a device count; only one is ported.
+    """
+    dev = resolve_device(device)
+    _check_ported(config, mesh)
+    train_dir = config["train_dir"]
+    os.makedirs(train_dir, exist_ok=True)
+    phases = resolve_schedules(config)
+    total_steps = sum(p["steps"] for p in phases)
+    batch_size = int(config.get("batch_size", 128))
+    features_length = int(config["spectrogram_length"])
+    eval_interval = int(config.get("eval_step_interval", 500))
+    seed = int(config.get("seed", 0))
+
+    model = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+    with open(os.path.join(train_dir, "model_summary.txt"), "w") as f:
+        f.write(model_summary(model) + "\n")
+
+    packed = _pack_corpus(feature_handler.providers, config, dev)
+    spc_cfg = config.get("steps_per_call", "auto")
+    # auto: one step per call on the card for now (a CUDA graph of the step
+    # is queued in ROADMAP item 8)
+    steps_per_call = 1 if spc_cfg in ("auto", None, "") else int(spc_cfg)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    train_step = make_train_step(bundle, model, packed, batch_size, features_length,
+                                 steps_per_call, generator)
+    eval_probs = make_eval_fn(bundle)
+
+    restored_from_step = 0
+    ckpt_path = os.path.join(train_dir, "restore", "ckpt.pt")
+    if restore_checkpoint and os.path.exists(ckpt_path):
+        restored = torch.load(ckpt_path, map_location=dev, weights_only=True)
+        with torch.no_grad():
+            model.load_state_dict(restored["weights"])
+        train_step.load_opt_state(restored["opt_state"])
+        # reference-compatible resume (train.py:229-233): weights and
+        # optimizer restore, the configured schedule restarts
+        restored_from_step = int(restored["step"])
+
+    # --- validation data, assembled once ------------------------------
+    data_rng = np.random.default_rng(seed)
+    has_val = feature_handler.get_mode_size("validation") > 0
+    val_x = val_y = None
+    if has_val:
+        val_x, val_y, _ = feature_handler.get_data(
+            "validation", batch_size=batch_size, features_length=features_length,
+            truncation_strategy="truncate_start", rng=data_rng)
+        val_x = torch.as_tensor(val_x, device=dev)
+    ambient_x = None
+    ambient_hours = 0.0
+    if feature_handler.get_mode_size("validation_ambient") > 0:
+        ambient_x, _, _ = feature_handler.get_data(
+            "validation_ambient", batch_size=batch_size, features_length=features_length,
+            truncation_strategy="split", rng=data_rng)
+        ambient_x = torch.as_tensor(ambient_x, device=dev)
+        ambient_hours = feature_handler.get_mode_duration("validation_ambient") / 3600.0
+
+    history_path = os.path.join(train_dir, "metrics.jsonl")
+    history = []
+    best_min = 10000.0
+    best_max = 0.0
+    best_no_faph_cutoff = 1.0
+    saturated_evals = 0  # consecutive evals with degenerate selection metrics
+    minimization_metric = config.get("minimization_metric")
+    maximization_metric = config.get("maximization_metric", "average_viable_recall")
+    target_min = float(config.get("target_minimization", 0.9))
+
+    # optional torch.profiler capture of the hot loop once warm
+    profile_dir = config.get("profile_dir")
+    profile_after = int(config.get("profile_after", 2))
+    profile_steps = int(config.get("profile_steps", 20))
+    profiler = None
+
+    step_times = []  # (n_steps, seconds) per call
+    step = 0
+    while step < total_steps:
+        if profile_dir and profiler is None and step >= profile_after:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+            profile_end = step + profile_steps
+        # phase lookup (reference train.py:249-263); step + 1 is the step
+        # about to run
+        s, phase, phase_end = 0, phases[-1], total_steps
+        for p in phases:
+            s += p["steps"]
+            if step + 1 <= s:
+                phase, phase_end = p, s
+                break
+        # chain steps only within one phase and up to the next eval
+        next_eval = step + eval_interval - (step % eval_interval)
+        room = min(phase_end, next_eval, total_steps) - step
+        n = steps_per_call if room >= steps_per_call else 1
+        t0 = time.perf_counter()
+        step_metrics = train_step.step(steps=n, **{k: v for k, v in phase.items() if k != "steps"})
+        step_times.append((n, time.perf_counter() - t0))
+        step += n
+        if profiler is not None and profile_dir and step >= profile_end:
+            profiler.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            profile_dir = None
+
+        if step % eval_interval == 0 or step == total_steps:
+            sm = {k: float(v) for k, v in step_metrics.items()}
+            _save(os.path.join(train_dir, "last_weights.pt"), _weights_state(model))
+
+            val_metrics = {}
+            if has_val:
+                vp = eval_probs(model, val_x)
+                ap = eval_probs(model, ambient_x) if ambient_x is not None and len(ambient_x) else None
+                val_metrics = M.validation_metrics(vp, val_y, ap, ambient_hours)
+                current_min = float(val_metrics[minimization_metric]) if minimization_metric else 0.0
+                current_max = float(val_metrics[maximization_metric])
+                # per-eval breadcrumb (reference train.py:391-399)
+                _save(os.path.join(train_dir, "train", f"{int(best_min * 10000)}_weights_{step}.pt"),
+                      _weights_state(model))
+                # Once faph == 0 and average_viable_recall == 1.0, every
+                # later eval ties and selection freezes at the first such
+                # eval (reference semantics, train.py:411-442).
+                if (minimization_metric and current_min == 0.0
+                        and float(val_metrics.get("average_viable_recall", 0.0)) >= 1.0):
+                    saturated_evals += 1
+                    if saturated_evals == 3:
+                        print(
+                            "WARNING: validation metrics saturated "
+                            f"({minimization_metric}=0 and average_viable_recall=1.0 for 3 "
+                            "consecutive evals) -- best-checkpoint selection is frozen at the "
+                            "first saturated eval. Use longer/harder validation_ambient audio "
+                            "so selection stays informative.",
+                            flush=True,
+                        )
+                else:
+                    saturated_evals = 0
+                if M.is_new_best(current_min, current_max, best_min, best_max, target_min):
+                    best_min, best_max = current_min, current_max
+                    best_no_faph_cutoff = val_metrics["cutoff_for_no_faph"]
+                    state = _weights_state(model)
+                    _save(os.path.join(train_dir, "best_weights.pt"), state)
+                    _save(ckpt_path, {"weights": state, "opt_state": _opt_state_cpu(train_step),
+                                      "step": step})
+
+            recent = step_times[-eval_interval:]
+            record = {
+                "step": step + restored_from_step,
+                "train": sm,
+                "validation": val_metrics,
+                "best_minimization_quantity": best_min,
+                "best_maximization_quantity": best_max,
+                "best_no_faph_cutoff": best_no_faph_cutoff,
+                "steps_per_sec": float(sum(n for n, _ in recent) / max(sum(t for _, t in recent), 1e-9)),
+            }
+            history.append(record)
+            with open(history_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    if profiler is not None and profile_dir:  # trace still open: short runs
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    state = _weights_state(model)
+    _save(ckpt_path, {"weights": state, "opt_state": _opt_state_cpu(train_step), "step": total_steps})
+    _save(os.path.join(train_dir, "last_weights.pt"), state)
+    if not os.path.exists(os.path.join(train_dir, "best_weights.pt")):
+        _save(os.path.join(train_dir, "best_weights.pt"), state)
+    return model, history
+
+
+def _opt_state_cpu(train_step: TrainStep) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in train_step.opt_state().items()}
+
+
+def load_weights(bundle, path: str, device=None) -> torch.nn.Module:
+    """A module holding the weights that train() saved at ``path``."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return bundle.load(state, device)

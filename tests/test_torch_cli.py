@@ -1,0 +1,264 @@
+"""The port's data store, CLI and streamed evaluation on a tiny synthetic
+store, against the JAX package where it has a counterpart.
+
+- ``FeatureHandler.get_data`` equals JAX's for truncate_start, split and
+  none with the same numpy generator;
+- a CLI run on the CPU (``--device cpu``) writes the JAX CLI's artifact
+  names and resumes from ``restore/ckpt.pt``;
+- ``streaming_model_roc`` and ``model_accuracy`` equal JAX's on the same
+  weights and store (AUC and curves to 1e-6);
+- what the port does not carry yet raises NotImplementedError naming its
+  ROADMAP queue item.
+"""
+
+import json
+import os
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from microwakeword_tpu.data.ragged_store import RaggedSpectrogramStore as JaxStore
+from microwakeword_tpu.data.store import FeatureHandler as JaxFeatureHandler
+from microwakeword_tpu.evaluate import streaming_eval as JE
+from microwakeword_tpu.models import build_model as jax_build_model
+from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
+from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.config import derive_config
+from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.store import FeatureHandler
+from microwakeword_tpu_torch.evaluate import streaming_eval as E
+from microwakeword_tpu_torch.models import build_model, convert
+from microwakeword_tpu_torch.train import loop as T
+
+torch.set_num_threads(2)
+
+MODEL_FLAGS = ["mixednet", "--pointwise_filters", "12,12", "--repeat_in_block", "1,1",
+               "--mixconv_kernel_sizes", "[3], [5]", "--residual_connection", "0,0",
+               "--first_conv_filters", "8", "--first_conv_kernel_size", "3", "--stride", "1"]
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    """(root, config): positives carry energy in the high channels,
+    negatives in the low ones (tests/test_cli.py's pattern)."""
+    root = tmp_path_factory.mktemp("cli_store")
+    rng = np.random.default_rng(0)
+
+    def make(n, positive, lo, hi):
+        out = []
+        for _ in range(n):
+            spec = rng.uniform(0, 80, size=(int(rng.integers(lo, hi)), 40))
+            spec[:, 20:] += 300 if positive else 0
+            spec[:, :20] += 0 if positive else 300
+            out.append(spec.astype(np.uint16))
+        return out
+
+    for name, positive, modes in [
+        ("pos", True, {"training": 24, "validation": 8, "testing": 5}),
+        ("neg", False, {"training": 20, "validation": 6, "testing": 4,
+                        "validation_ambient": 2, "testing_ambient": 2}),
+    ]:
+        for mode, n in modes.items():
+            lo, hi = (500, 600) if mode.endswith("ambient") else (30, 70)
+            RaggedSpectrogramStore.create(str(root / name / mode / "w_mmap"), make(n, positive, lo, hi))
+    config = {
+        "train_dir": str(root / "run"), "clip_duration_ms": 390, "window_step_ms": 10,
+        "batch_size": 16, "training_steps": [12, 8], "learning_rates": [0.01, 0.002],
+        "eval_step_interval": 10, "seed": 3, "steps_per_call": 3,
+        "minimization_metric": "ambient_false_positives_per_hour",
+        "maximization_metric": "average_viable_recall", "target_minimization": 0.9,
+        "features": [
+            {"features_dir": str(root / "pos"), "truth": True, "sampling_weight": 1.0,
+             "penalty_weight": 1.0, "truncation_strategy": "truncate_start", "type": "mmap"},
+            {"features_dir": str(root / "neg"), "truth": False, "sampling_weight": 1.0,
+             "penalty_weight": 1.0, "truncation_strategy": "random", "type": "mmap",
+             "fixed_right_cutoffs": [0, 4]},
+        ],
+    }
+    with open(root / "training_parameters.yaml", "w") as f:
+        yaml.safe_dump(config, f)
+    return root, config
+
+
+@pytest.fixture(scope="module")
+def trained(store):
+    """One CLI run on the CPU: (flags, derived config, run() result)."""
+    root, _ = store
+    argv = ["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
+            "--test_tf_nonstreaming", "1"] + MODEL_FLAGS
+    out = CLI.main(argv)
+    flags = CLI.build_parser().parse_args(argv)
+    with open(root / "training_parameters.yaml") as f:
+        config = derive_config(yaml.safe_load(f), CLI.model_config_from_flags(flags))
+    return flags, config, out
+
+
+@pytest.mark.parametrize("mode,strategy", [
+    ("validation", "truncate_start"), ("validation_ambient", "split"), ("testing", "none"),
+    ("testing_ambient", "none"), ("validation", "fixed_right_cutoff"),
+])
+def test_get_data_matches_jax(store, mode, strategy):
+    _, config = store
+    config = dict(config, stride=3)
+    want = JaxFeatureHandler(config).get_data(mode, 16, 37, strategy, rng=np.random.default_rng(7))
+    got = FeatureHandler(config).get_data(mode, 16, 37, strategy, rng=np.random.default_rng(7))
+    if strategy == "none":
+        assert len(got[0]) == len(want[0]) > 0
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+    else:
+        assert got[0].shape == want[0].shape and len(got[0]) > 0
+        np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_store_reads_jax_written_store(tmp_path):
+    specs = [np.arange(t * 40, dtype=np.uint16).reshape(t, 40) for t in (3, 9, 1)]
+    JaxStore.create(str(tmp_path / "s_mmap"), specs)
+    store = RaggedSpectrogramStore(str(tmp_path / "s_mmap"))
+    assert len(store) == 3 and store.total_frames == 13
+    for got, want in zip(store, specs):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cli_writes_artifacts(store, trained):
+    root, _ = store
+    _, _, out = trained
+    run = root / "run"
+    for name in ("best_weights.pt", "last_weights.pt", "restore/ckpt.pt", "training_config.yaml",
+                 "model_summary.txt", "metrics.jsonl", "streaming/streaming_roc.txt",
+                 "non_stream/testing_set_metrics.txt"):
+        assert (run / name).exists(), name
+    assert any(p.name.endswith("_weights_10.pt") for p in (run / "train").iterdir())
+    records = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records] == [10, 20]
+    assert records[-1]["train"]["accuracy"] > 0.85
+    assert np.isfinite(out["streaming_roc"]["auc"]) and out["accuracy"]["accuracy"] > 0.8
+    assert "Total trainable params" in (run / "model_summary.txt").read_text()
+
+
+def test_cli_resumes_from_restore_checkpoint(store, trained, tmp_path):
+    root, config = store
+    _, derived, _ = trained
+    ckpt = torch.load(root / "run" / "restore" / "ckpt.pt", weights_only=True)
+    assert ckpt["step"] == 20 and int(ckpt["opt_state"]["count"]) == 20
+    resumed = dict(config, train_dir=str(tmp_path / "resumed"), training_steps=[10])
+    os.makedirs(tmp_path / "resumed" / "restore")
+    torch.save(ckpt, tmp_path / "resumed" / "restore" / "ckpt.pt")
+    with open(tmp_path / "resumed.yaml", "w") as f:
+        yaml.safe_dump(resumed, f)
+    out = CLI.main(["--training_config", str(tmp_path / "resumed.yaml"), "--device", "cpu",
+                    "--restore_checkpoint", "1", "--test_streaming", "0"] + MODEL_FLAGS)
+    assert [r["step"] for r in out["history"]] == [30]  # the step offset is added
+    assert out["history"][-1]["train"]["accuracy"] > 0.85
+    restored = torch.load(tmp_path / "resumed" / "restore" / "ckpt.pt", weights_only=True)
+    assert int(restored["opt_state"]["count"]) == 30  # Adam's count went on from 20
+    # the same run from a fresh init ends elsewhere
+    bundle = build_model("mixednet", derived["model_config"])
+    fresh_config = derive_config(dict(resumed, train_dir=str(tmp_path / "fresh")),
+                                 derived["model_config"])
+    fresh, _ = T.train(bundle, fresh_config, FeatureHandler(fresh_config), device="cpu")
+    last = torch.load(tmp_path / "resumed" / "last_weights.pt", weights_only=True)
+    assert not all(torch.equal(last[k], v) for k, v in fresh.state_dict().items())
+
+
+@pytest.fixture(scope="module")
+def twin(trained):
+    """The JAX bundle (its stream_scan and forward jitted, so that the scan
+    compiles once per length bucket), the CLI run's best weights as flax
+    variables, the port bundle and module."""
+    _, config, _ = trained
+    tb = build_model("mixednet", config["model_config"])
+    model = T.load_weights(tb, os.path.join(config["train_dir"], "best_weights.pt"), device="cpu")
+    cfg = config["model_config"]
+    jb = jax_build_model("mixednet", JaxConfig(**{
+        f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+    variables = convert.state_to_flax({k: v.numpy() for k, v in model.state_dict().items()})
+    jitted = types.SimpleNamespace(stride=jb.stride, stream_scan=jax.jit(jb.stream_scan),
+                                   forward=jax.jit(jb.forward))
+    return jitted, variables, tb, model
+
+
+def test_streaming_model_roc_matches_jax(trained, twin):
+    _, config, _ = trained
+    jb, variables, tb, model = twin
+    want = JE.streaming_model_roc(jb, variables, JaxFeatureHandler(config), config)
+    got = E.streaming_model_roc(tb, model, FeatureHandler(config), config)
+    assert got["positive_count"] == want["positive_count"] == 5
+    assert got["auc"] == pytest.approx(want["auc"], abs=1e-6)
+    for key in ("x_faph", "y_frr", "cutoffs", "faph_at_cutoffs", "frr_at_cutoffs"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-6, err_msg=key)
+
+
+def test_streaming_model_roc_stream_fn(trained, twin):
+    """A ``stream_fn`` replaces only the source of the probabilities: the
+    port's own scan given as one yields the same curve."""
+    _, config, _ = trained
+    _, _, tb, model = twin
+    want = E.streaming_model_roc(tb, model, FeatureHandler(config), config)
+    got = E.streaming_model_roc(tb, model, FeatureHandler(config), config,
+                                stream_fn=lambda m, x: tb.stream_scan(m, torch.from_numpy(x)))
+    assert got["auc"] == want["auc"]
+    for key in ("x_faph", "y_frr", "faph_at_cutoffs", "frr_at_cutoffs"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("data_set,use_streaming", [
+    ("testing", False), ("testing", True), ("testing_ambient", False)])
+def test_model_accuracy_matches_jax(trained, twin, data_set, use_streaming):
+    _, config, _ = trained
+    jb, variables, tb, model = twin
+    want = JE.model_accuracy(jb, variables, JaxFeatureHandler(config), config, data_set=data_set,
+                             use_streaming=use_streaming)
+    got = E.model_accuracy(tb, model, FeatureHandler(config), config, data_set=data_set,
+                           use_streaming=use_streaming)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        if isinstance(value, float) and np.isnan(value):
+            assert np.isnan(got[key]), key
+        else:
+            assert got[key] == pytest.approx(value, abs=1e-6), key
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--export_native", "1"], "item 6"),
+    (["--test_tflite_streaming", "1"], "item 6"),
+    (["--mesh", "2"], "item 7"),
+])
+def test_cli_flags_not_ported_raise(store, extra, item):
+    root, _ = store
+    with pytest.raises(NotImplementedError, match=item):
+        CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
+                  "--train", "0"] + extra + MODEL_FLAGS)
+
+
+def test_inception_raises(store):
+    root, _ = store
+    with pytest.raises(NotImplementedError, match="item 3"):
+        CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
+                  "inception"])
+
+
+@pytest.mark.parametrize("option,item", [
+    ({"raw_audio_training": True}, "item 4"),
+    ({"corpus_residency": "host"}, "item 5"),
+    ({"pool_refresh_steps": 10}, "item 5"),
+])
+def test_train_options_not_ported_raise(trained, tmp_path, option, item):
+    _, config, _ = trained
+    config = dict(config, train_dir=str(tmp_path / "run"), **option)
+    with pytest.raises(NotImplementedError, match=item):
+        T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
+                device="cpu")
+
+
+def test_clips_feature_sets_raise(store):
+    _, config = store
+    config = dict(config, features=[{"type": "clips", "truth": True}])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        FeatureHandler(config)

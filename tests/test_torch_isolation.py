@@ -13,27 +13,52 @@ import numpy as np
 import pytest
 import torch
 
+from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.config import derive_config
 from microwakeword_tpu_torch.frontend import plain
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, presets
+from microwakeword_tpu_torch.train import loop
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "microwakeword_tpu")
 
 _PROBE = """
-import json, sys
+import json, os, sys, tempfile
 before = set(sys.modules)
 import numpy as np
 import torch
 torch.set_num_threads(2)
+from microwakeword_tpu_torch import model_train_eval
+from microwakeword_tpu_torch.config import derive_config
+from microwakeword_tpu_torch.data import sampler
+from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.inference import Model
-from microwakeword_tpu_torch.models import build_model, presets
+from microwakeword_tpu_torch.models import MixedNetConfig, build_model, presets
+from microwakeword_tpu_torch.train import loop
 bundle = build_model("mixednet", presets.flagship_config())
 model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
 state = {k: v.numpy() for k, v in model.state_dict().items()}
 audio = np.random.default_rng(0).integers(-8000, 8000, 8000).astype(np.int16)
 probs = Model.from_torch(bundle, state, device="cpu").predict_clip(audio)
 assert probs.shape == (48 // 3,), probs.shape
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+for name in ("pos", "neg"):
+    for mode in ("training", "validation"):
+        RaggedSpectrogramStore.create(os.path.join(root, name, mode, "w_mmap"),
+                                      [rng.integers(0, 600, (40, 40)) for _ in range(4)])
+config = derive_config({
+    "train_dir": os.path.join(root, "run"), "clip_duration_ms": 390, "window_step_ms": 10,
+    "batch_size": 4, "training_steps": [2], "eval_step_interval": 2, "features": [
+        {"features_dir": os.path.join(root, name), "truth": name == "pos", "sampling_weight": 1.0,
+         "penalty_weight": 1.0, "truncation_strategy": "random"} for name in ("pos", "neg")]},
+    MixedNetConfig(pointwise_filters=(8,), repeat_in_block=(1,), mixconv_kernel_sizes=((3,),),
+                   residual_connection=(False,), first_conv_filters=4))
+small = build_model("mixednet", config["model_config"])
+_, history = loop.train(small, config, FeatureHandler(config), device="cpu")
+assert [r["step"] for r in history] == [2], history
 added = set(sys.modules) - before
 print(json.dumps(sorted(added)))
 """
@@ -52,7 +77,9 @@ def test_import_and_predict_load_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "microwakeword_tpu_torch" in added
+    assert "microwakeword_tpu_torch.train.loop" in added
     assert [m for m in added if _forbidden(m)] == []
+    assert "yaml" not in added  # only the CLI's main() reads YAML
 
 
 def _sources():
@@ -89,3 +116,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert Model.from_torch(bundle, state, device="cpu").predict_spectrogram(
         np.zeros((9, 40), np.float32)
     ).shape == (3,)
+
+
+def test_train_and_run_default_to_cuda(monkeypatch, tmp_path):
+    """train() and the CLI's run() raise without a card unless the CPU is
+    asked for, before they read any data."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = derive_config({"train_dir": str(tmp_path / "run"), "clip_duration_ms": 1500,
+                            "window_step_ms": 10, "features": []}, presets.flagship_config())
+    bundle = build_model("mixednet", config["model_config"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.train(bundle, config, feature_handler=None)
+    flags = CLI.build_parser().parse_args(["--training_config", "unused.yaml", "mixednet"])
+    assert flags.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLI.run(flags, config)
+    flags = CLI.build_parser().parse_args(
+        ["--training_config", "unused.yaml", "--device", "cpu", "--train", "0", "mixednet"])
+    with pytest.raises(ValueError, match="not trained"):  # the CPU gets past the device check
+        CLI.run(flags, config)
