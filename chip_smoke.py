@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving and training paths on one CUDA card and checks them.
+"""Drives the port's serving, training and raw-audio paths on one CUDA card and checks them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -47,8 +47,27 @@ printing its own lines; any failure exits non-zero:
    statistics, the step-0 gradient and the flat parameters after 5 steps,
    each to 1e-9; in float32 (TF32 off), the step-0 loss and the statistics,
    with the gradient and the 5-step parameters printed against float64;
-8. a JSON line of the kernels, then the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+8. the dataset build: synthetic WAV clips from the seed (WAVS: gated
+   2-2.4 kHz tones as positives, low-band noise and tones as negatives,
+   background noise, decaying impulses as RIRs, ambient tracks) through the
+   port's save_clip, then ``build_dataset`` on the card with augmentation:
+   validation, testing and ambient stores; checks the frontend's launches and
+   holds stored spectrograms against the plain frontend on the same augmented
+   audio under the Q6 gate;
+9. raw-audio training at full width through ``run()``: two clips-type
+   providers with pools of 2,000 augmented 3.2 s clips on the card, phase 8's
+   stores for validation and testing, phase 6's recipe and schedule; checks
+   the training as phase 6 does and that the frontend kernel ran exactly 3
+   launches per train step; holds one step's in-step features against the
+   plain frontend on the same gathered windows (Q6 gate); times the step as
+   phase 6 does, with the frontend kernel's device time per step;
+10. mixed training with pool refresh through ``run()``: clips-type
+   positives and phase 6's mmap negatives, the pool refreshed every 50 steps
+   (blocking); checks the launches, the swaps and the training; times the
+   mixed step, and the step while a PoolRefresher builds, then checks that
+   a swap changes the pool tensor in place at the same shape;
+11. a JSON line of the kernels, then the last line
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -66,11 +85,16 @@ import time
 import numpy as np
 import torch
 
-from microwakeword_tpu_torch import _build
+from microwakeword_tpu_torch import _build, build_dataset
 from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.audio.augmentation import Augmentation
+from microwakeword_tpu_torch.audio.clips import Clips
+from microwakeword_tpu_torch.audio.io import save_clip
+from microwakeword_tpu_torch.audio.spectrograms import features_to_uint16
 from microwakeword_tpu_torch.config import derive_config
 from microwakeword_tpu_torch.data import sampler
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.evaluate import roc, streaming_eval
 from microwakeword_tpu_torch.frontend import constants as FC
@@ -97,6 +121,9 @@ LONG_CLIPS = (8, 600 * FC.SAMPLE_RATE)
 # Published H100 SXM peaks (dense): FP32 on the CUDA cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# The __global__ functions of csrc/frontend.cu: launches A, S and B.
+FRONTEND_KERNELS = ("filterbank_kernel", "carry_scan_kernel", "ema_agc_kernel")
 
 # FP32 operations per feature cell after the mel product: sqrt and / 8 (2),
 # the EMA (3) and plain._agc_output's elementwise operations (24).
@@ -130,6 +157,18 @@ PARITY_STEPS = 5
 PARITY_F64 = 1e-9  # relative for the loss and the gradient's norm, else absolute
 PARITY_LOSS_RTOL = 1e-5
 PARITY_STATS_RTOL, PARITY_STATS_ATOL = 1e-5, 1e-6
+# Phases 8-10, the raw-audio path, on synthetic WAV clips from the seed:
+# directory: (clips, least seconds, most seconds).  *_train feed the
+# clips-type providers, *_eval phase 8's validation and testing stores.
+WAVS = {"pos_train": (100, 1.0, 1.5), "neg_train": (100, 1.0, 1.5), "pos_eval": (200, 1.0, 1.5),
+        "neg_eval": (200, 1.0, 1.5), "background": (8, 10.0, 10.0), "rir": (8, 0.3, 0.3),
+        "ambient_val": (4, 60.0, 60.0), "ambient_test": (2, 60.0, 60.0)}
+POOL_SIZE = 2000  # augmented clips per clips-type provider: the JAX package's pack_pool_size
+AUGMENTATION_S = 3.2  # augmentation_duration_s: every augmented clip is 3.2 s
+BACKGROUND_SNR_DB = (0.0, 10.0)  # the JAX package's default is (-10, 10)
+BUILD_BATCH = 32  # clips per frontend call in build_dataset (batched_spectrograms)
+RAW_STEPS = [400, 200]  # phase 9: twice phase 6's schedule
+MIXED_STEPS, REFRESH_STEPS = [100], 50  # phase 10: two blocking swaps
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -138,7 +177,8 @@ def check(cond: bool, msg: str) -> None:
 
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (wall ms, summed device
-    kernel ms, the five kernels with the most device time, kernel launches)."""
+    kernel ms, the five kernels with the most device time, kernel launches,
+    device ms of the frontend kernel's launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -150,7 +190,9 @@ def device_profile(fn):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in kernels[:5]]
-    return wall_ms, device_ms, top, sum(e.count for e in kernels)
+    frontend_ms = sum(e.self_device_time_total for e in kernels
+                      if any(k in e.key for k in FRONTEND_KERNELS)) / 1e3
+    return wall_ms, device_ms, top, sum(e.count for e in kernels), frontend_ms
 
 
 def host_profile(fn, calls: int):
@@ -211,69 +253,89 @@ def recipe(root: str, seed: int) -> dict:
     }
 
 
-def phase_training(dev: torch.device, smi: str, seed: int):
-    """Phase 6; returns (bundle, corpus, first phase) for phase 7."""
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        frames = write_store(root, np.random.default_rng(seed))
-        print(f"phase 6 store: {frames:,} training frames ({frames * 80 / 1e6:.1f} MB of uint16), "
-              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
-        flags = CLI.build_parser().parse_args(
-            ["--training_config", os.path.join(root, "unused.yaml"), "--test_tf_nonstreaming", "1",
-             "--device", dev.type]
-            + FLAGSHIP_FLAGS)
-        config = derive_config(recipe(root, seed), CLI.model_config_from_flags(flags))
-        length, batch = config["spectrogram_length"], config["batch_size"]
-        check(length == 204, f"flagship input frames {length}")
-        bundle = build_model("mixednet", config["model_config"])
-        phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+def phase_training(dev: torch.device, smi: str, seed: int, root: str):
+    """Phase 6, its store under ``root``; returns (bundle, corpus, first
+    phase) for phase 7."""
+    t0 = time.perf_counter()
+    frames = write_store(root, np.random.default_rng(seed))
+    print(f"phase 6 store: {frames:,} training frames ({frames * 80 / 1e6:.1f} MB of uint16), "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    flags = CLI.build_parser().parse_args(
+        ["--training_config", os.path.join(root, "unused.yaml"), "--test_tf_nonstreaming", "1",
+         "--device", dev.type]
+        + FLAGSHIP_FLAGS)
+    config = derive_config(recipe(root, seed), CLI.model_config_from_flags(flags))
+    length, batch = config["spectrogram_length"], config["batch_size"]
+    check(length == 204, f"flagship input frames {length}")
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
 
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = CLI.run(flags, config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        history = out["history"]
-        run_dir = config["train_dir"]
-        # the step-0 loss of the recipe: the seed's initial model, one step
-        handler = FeatureHandler(config)
-        packed = handler.pack_training(dev)
-        init = bundle.init(torch.Generator().manual_seed(seed), device=dev)
-        first = training.make_train_step(bundle, init, packed, batch, length,
-                                         generator=torch.Generator(device=dev).manual_seed(seed))
-        loss0 = float(first.step(**phase)["loss"])
-        del first, init
-        for name in ("best_weights.pt", "metrics.jsonl", os.path.join("streaming", "streaming_roc.txt")):
-            check(os.path.exists(os.path.join(run_dir, name)), f"{name} was not written")
-        last = history[-1]["train"]
-        auc = out["streaming_roc"]["auc"]
-        print(f"phase 6 run(): {sum(p['steps'] for p in training.resolve_schedules(config))} steps "
-              f"of batch {batch} x {length} frames, wall {wall:.2f} s with evals and the streamed "
-              f"ROC; peak memory {peak / 2**20:.1f} MiB ({smi})")
-        for rec in history:
-            v = rec["validation"]
-            print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
-                  f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f} "
-                  f"auc {v['auc']:.5f} faph {v['ambient_false_positives_per_hour']:.3f} "
-                  f"avr {v['average_viable_recall']:.4f}; {rec['steps_per_sec']:.1f} steps/s "
-                  f"(host clock, no sync)")
-        print(f"phase 6 streamed test ROC AUC {auc:.5f}; test accuracy "
-              f"{out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
-        check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
-        check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
-        # eval mode, on running statistics: 0.99 ** 300 of the initial ones remain
-        val_acc = history[-1]["validation"]["accuracy"]
-        check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
-        check(math.isfinite(auc), f"streamed AUC {auc}")
-        check_selection(bundle, config, handler, out, dev)
-        state = {k: v.cpu() for k, v in training.load_weights(
-            bundle, os.path.join(run_dir, "best_weights.pt"), dev).state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = CLI.run(flags, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    history = out["history"]
+    run_dir = config["train_dir"]
+    # the step-0 loss of the recipe: the seed's initial model, one step
+    handler = FeatureHandler(config)
+    packed = handler.pack_training(dev)
+    init = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+    first = training.make_train_step(bundle, init, packed, batch, length,
+                                     generator=torch.Generator(device=dev).manual_seed(seed))
+    loss0 = float(first.step(**phase)["loss"])
+    del first, init
+    for name in ("best_weights.pt", "metrics.jsonl", os.path.join("streaming", "streaming_roc.txt")):
+        check(os.path.exists(os.path.join(run_dir, name)), f"{name} was not written")
+    last = history[-1]["train"]
+    auc = out["streaming_roc"]["auc"]
+    print(f"phase 6 run(): {sum(p['steps'] for p in training.resolve_schedules(config))} steps "
+          f"of batch {batch} x {length} frames, wall {wall:.2f} s with evals and the streamed "
+          f"ROC; peak memory {peak / 2**20:.1f} MiB ({smi})")
+    for rec in history:
+        v = rec["validation"]
+        print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
+              f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f} "
+              f"auc {v['auc']:.5f} faph {v['ambient_false_positives_per_hour']:.3f} "
+              f"avr {v['average_viable_recall']:.4f}; {rec['steps_per_sec']:.1f} steps/s "
+              f"(host clock, no sync)")
+    print(f"phase 6 streamed test ROC AUC {auc:.5f}; test accuracy "
+          f"{out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
+    check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
+    check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
+    # eval mode, on running statistics: 0.99 ** 300 of the initial ones remain
+    val_acc = history[-1]["validation"]["accuracy"]
+    check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
+    check(math.isfinite(auc), f"streamed AUC {auc}")
+    check_selection(bundle, config, handler, out, dev)
+    state = {k: v.cpu() for k, v in training.load_weights(
+        bundle, os.path.join(run_dir, "best_weights.pt"), dev).state_dict().items()}
 
     # the trained model's step: CUDA events, the profiler, the sync check
     model = bundle.load(state, device=dev)
     train_step = training.make_train_step(bundle, model, packed, batch, length,
-                                    generator=torch.Generator(device=dev).manual_seed(seed + 1))
+                                          generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    m = measure_step(train_step, phase)
+    print(f"phase 6 step (flagship, batch {batch}, SpecAugment on, TF32 off): {m['step_ms']:.4f} ms "
+          f"per step by CUDA events over {TIMED_STEPS} steps ({1e3 / m['step_ms']:.1f} steps/s; host "
+          f"clock {m['host_ms']:.4f} ms) ({smi})")
+    print_profile("phase 6", m)
+    for name, (wall, device, kernels, host_top) in step_breakdown(train_step, phase).items():
+        print(f"phase 6 layer {name}: {wall:.4f} ms per call under the profiler, device "
+              f"{device:.4f} ms, {kernels:.1f} kernels; most host time: " + "; ".join(
+                  f"{op} {ms:.4f} ms x{n:.0f}" for op, ms, n in host_top))
+    print(f"phase 6 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
+          f"raised nothing", flush=True)
+    return bundle, packed, phase
+
+
+def measure_step(train_step, phase: dict) -> dict:
+    """A train step's times: 10 warm-up steps, ms per step by CUDA events
+    over TIMED_STEPS (and by the host clock), PROFILED_STEPS under
+    torch.profiler (wall, device ms, the largest kernels, kernels and the
+    frontend kernel's device ms per step), then SYNC_CHECKED_STEPS under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     for _ in range(10):
         train_step.step(**phase)
     torch.cuda.synchronize()
@@ -285,12 +347,12 @@ def phase_training(dev: torch.device, smi: str, seed: int):
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    step_ms = start.elapsed_time(end) / TIMED_STEPS
+
     def profiled_steps():
         for _ in range(PROFILED_STEPS):
             train_step.step(**phase)
 
-    wall_ms, device_ms, top, launches = device_profile(profiled_steps)
+    wall_ms, device_ms, top, launches, frontend_ms = device_profile(profiled_steps)
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(SYNC_CHECKED_STEPS):
@@ -298,22 +360,18 @@ def phase_training(dev: torch.device, smi: str, seed: int):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     check(math.isfinite(float(metrics["loss"])), "loss after the sync check")
-    print(f"phase 6 step (flagship, batch {batch}, SpecAugment on, TF32 off): {step_ms:.4f} ms "
-          f"per step by CUDA events over {TIMED_STEPS} steps ({1e3 / step_ms:.1f} steps/s; host "
-          f"clock {host_ms:.4f} ms) ({smi})")
-    print(f"phase 6 profile of {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms under the profiler, "
-          f"device kernels {device_ms:.3f} ms, busy share {device_ms / wall_ms:.4f}, "
-          f"{launches / PROFILED_STEPS:.1f} kernels per step"
-          + ("" if device_ms else " (the profiler saw no device time: not measured)"))
-    for key, ms, count in top:
+    return dict(step_ms=start.elapsed_time(end) / TIMED_STEPS, host_ms=host_ms, wall_ms=wall_ms,
+                device_ms=device_ms, top=top, kernels=launches / PROFILED_STEPS,
+                frontend_ms=frontend_ms / PROFILED_STEPS)
+
+
+def print_profile(label: str, m: dict) -> None:
+    print(f"{label} profile of {PROFILED_STEPS} steps: wall {m['wall_ms']:.3f} ms under the profiler, "
+          f"device kernels {m['device_ms']:.3f} ms, busy share {m['device_ms'] / m['wall_ms']:.4f}, "
+          f"{m['kernels']:.1f} kernels per step"
+          + ("" if m["device_ms"] else " (the profiler saw no device time: not measured)"))
+    for key, ms, count in m["top"]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
-    for name, (wall, device, kernels, host_top) in step_breakdown(train_step, phase).items():
-        print(f"phase 6 layer {name}: {wall:.4f} ms per call under the profiler, device "
-              f"{device:.4f} ms, {kernels:.1f} kernels; most host time: " + "; ".join(
-                  f"{op} {ms:.4f} ms x{n:.0f}" for op, ms, n in host_top))
-    print(f"phase 6 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
-          f"raised nothing", flush=True)
-    return bundle, packed, phase
 
 
 def check_selection(bundle, config: dict, handler, out: dict, dev: torch.device) -> None:
@@ -413,7 +471,7 @@ def step_breakdown(step, phase: dict, calls: int = 20) -> dict:
             for _ in range(calls):
                 fn()
 
-        wall_ms, device_ms, _, launches = device_profile(run)
+        wall_ms, device_ms, _, launches, _ = device_profile(run)
         out[name] = (wall_ms / calls, device_ms / calls, launches / calls, host_profile(fn, calls))
     return out
 
@@ -486,6 +544,345 @@ def phase_parity(bundle, packed, phase: dict, dev: torch.device, smi: str, seed:
           f"{float((f_p - f64_flat).abs().max()):.2e} (tolerances: float64 {PARITY_F64}; float32 "
           f"loss rel {PARITY_LOSS_RTOL}, statistics rtol {PARITY_STATS_RTOL} atol "
           f"{PARITY_STATS_ATOL})", flush=True)
+
+
+def gate_mask(rng: np.random.Generator, samples: int) -> np.ndarray:
+    """An envelope that swells and fades 5-10 times a second, max(sin, 0)^2:
+    the frontend's noise suppression removes steady sounds, so the classes
+    differ in what comes and goes; a smooth envelope spreads no clicks into
+    the other class's band."""
+    t = np.arange(samples) / FC.SAMPLE_RATE
+    return np.maximum(np.sin(2 * np.pi * rng.uniform(5.0, 10.0) * t + rng.uniform(0, 2 * np.pi)), 0) ** 2
+
+
+def gated_tone(rng: np.random.Generator, samples: int, lo: float, hi: float) -> np.ndarray:
+    """A tone of a frequency in [lo, hi) Hz under a gate_mask."""
+    t = np.arange(samples) / FC.SAMPLE_RATE
+    return (rng.uniform(0.2, 0.6) * gate_mask(rng, samples)
+            * np.sin(2 * np.pi * rng.uniform(lo, hi) * t))
+
+
+def low_noise(rng: np.random.Generator, samples: int, level: float) -> np.ndarray:
+    """White noise of RMS ``level`` with everything above 800 Hz removed."""
+    spectrum = np.fft.rfft(rng.standard_normal(samples))
+    spectrum[np.fft.rfftfreq(samples, 1 / FC.SAMPLE_RATE) > 800.0] = 0
+    noise = np.fft.irfft(spectrum, samples)
+    return level * noise / max(float(noise.std()), 1e-12)
+
+
+def write_wavs(root: str, rng: np.random.Generator) -> float:
+    """The WAVS clips under ``root``/<name>/ through the port's save_clip;
+    returns their seconds.  Positives: gated 2-2.4 kHz tones.  Negatives:
+    gated 150-800 Hz tones or gated low-band noise.  Background: white noise.
+    RIRs: decaying noise impulses.  Ambient: low-band noise with gated low
+    tones; the first validation track also carries AMBIENT_BURSTS[1] positive
+    bursts, so a confident model has false accepts there."""
+    seconds = 0.0
+    for name, (count, lo, hi) in WAVS.items():
+        os.makedirs(os.path.join(root, name))
+        for i in range(count):
+            n = int(rng.uniform(lo, hi) * FC.SAMPLE_RATE)
+            if name.startswith("pos"):
+                audio = gated_tone(rng, n, 2000.0, 2400.0)
+            elif name.startswith("neg"):
+                audio = (gated_tone(rng, n, 150.0, 800.0) if i % 2 else
+                         low_noise(rng, n, 0.3) * gate_mask(rng, n))
+            elif name == "background":
+                audio = 0.1 * rng.standard_normal(n)
+            elif name == "rir":
+                audio = np.exp(-np.arange(n) / (0.05 * FC.SAMPLE_RATE)) * rng.standard_normal(n)
+                audio[0] = 1.0
+            else:  # ambient
+                audio = low_noise(rng, n, 0.05)
+                for start in rng.integers(0, n - FC.SAMPLE_RATE, 30):
+                    audio[start : start + FC.SAMPLE_RATE] += gated_tone(rng, FC.SAMPLE_RATE, 150, 800)
+                if name == "ambient_val" and i == 0:
+                    for start in rng.integers(0, n - FC.SAMPLE_RATE, AMBIENT_BURSTS[1]):
+                        audio[start : start + FC.SAMPLE_RATE] += gated_tone(rng, FC.SAMPLE_RATE,
+                                                                             2000, 2400)
+            peak = np.abs(audio).max()
+            audio = audio * min(1.0, 0.95 / peak) if peak > 0 else audio
+            save_clip(audio.astype(np.float32), os.path.join(root, name, f"{name}{i}.wav"))
+            seconds += n / FC.SAMPLE_RATE
+    return seconds
+
+
+def augmentation_settings(wav_root: str, seed: int) -> dict:
+    """Augmentation with the JAX package's default probabilities over the
+    phase's background noise and RIRs, AUGMENTATION_S long.  The background
+    is mixed at BACKGROUND_SNR_DB: a 1 s tone in 3.2 s drowned 10 dB below
+    white noise leaves positives that 300 steps of the recipe, whose class
+    weights ask for a posterior above 20/21, do not learn to accept."""
+    return {"augmentation_duration_s": AUGMENTATION_S, "seed": seed,
+            "background_paths": [os.path.join(wav_root, "background")],
+            "impulse_paths": [os.path.join(wav_root, "rir")],
+            "background_min_snr_db": BACKGROUND_SNR_DB[0],
+            "background_max_snr_db": BACKGROUND_SNR_DB[1]}
+
+
+def dataset_docs(wav_root: str, out_root: str, seed: int) -> list[dict]:
+    """build_dataset's documents: pos/ and neg/ validation and testing
+    stores from the *_eval clips (halves of one split), augmented; the
+    ambient tracks under neg/, not augmented."""
+    docs = [{"output_dir": os.path.join(out_root, name), "name": name,
+             "clips": {"input_directory": os.path.join(wav_root, f"{name}_eval"),
+                       "random_split_seed": seed, "split_count": 0.5, "seed": seed + i},
+             "augmentation": augmentation_settings(wav_root, seed + 10 + i),
+             "spectrogram_generation": {"step_ms": 10},
+             "splits": {"validation": {"split": "validation"}, "testing": {"split": "test"}}}
+            for i, name in enumerate(("pos", "neg"))]
+    docs += [{"output_dir": os.path.join(out_root, "neg"), "name": name,
+              "clips": {"input_directory": os.path.join(wav_root, name)},
+              "spectrogram_generation": {"step_ms": 10}, "splits": {mode: {"split": None}}}
+             for mode, name in (("validation_ambient", "ambient_val"), ("testing_ambient", "ambient_test"))]
+    return docs
+
+
+def phase_dataset(dev: torch.device, smi: str, seed: int, root: str) -> dict:
+    """Phase 8: synthetic WAVs from the seed, then build_dataset on the card.
+    Checks the frontend's launches (3 per batch of at most BUILD_BATCH clips)
+    and holds the first BUILD_BATCH stored validation positives against the
+    plain frontend on the same augmented audio, each clip alone, under the
+    Q6 gate.  Returns {"launches", "wav_root", "stores"}."""
+    wav_root, stores = os.path.join(root, "wav"), os.path.join(root, "stores")
+    t0 = time.perf_counter()
+    seconds = write_wavs(wav_root, np.random.default_rng(seed + 100))
+    print(f"phase 8 WAVs: {sum(c for c, _, _ in WAVS.values())} clips, {seconds:.1f} s of audio, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    docs = dataset_docs(wav_root, stores, seed)
+    kernel.frontend_batch.launches = 0
+    t0 = time.perf_counter()
+    results = [build_dataset.build_feature_dir(doc, dev, log=lambda *a: None) for doc in docs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.frontend_batch.launches
+    calls = sum(-(-count // BUILD_BATCH) for res in results for count, _ in res.values())
+    check(launches == kernel.LAUNCHES_PER_CALL * calls > 0,
+          f"build_dataset launched the frontend kernel {launches} times for {calls} batches")
+    print(f"phase 8 build_dataset on the card: {wall:.2f} s; stores " + "; ".join(
+        f"{doc['name']}/{mode} {count} clips {frames} frames" for doc, res in zip(docs, results)
+        for mode, (count, frames) in res.items()) + f"; frontend launches {launches} ({smi})")
+
+    doc = docs[0]
+    clips = Clips(**doc["clips"])
+    audio = Augmentation(**doc["augmentation"]).augment_generator(
+        clips.audio_generator(split="validation"))
+    store = RaggedSpectrogramStore(os.path.join(stores, "pos", "validation", "pos_mmap"))
+    got, want = [], []
+    with torch.inference_mode():
+        for i, clip in zip(range(BUILD_BATCH), audio):
+            feats = plain.frontend_batch(torch.from_numpy(np.asarray(clip, np.float32))[None].to(dev))
+            want.append(features_to_uint16(feats[0].cpu().numpy()))
+            got.append(np.asarray(store[i]))
+    check([g.shape for g in got] == [w.shape for w in want], "stored spectrogram lengths")
+    res = gate.assert_q6_gate(np.concatenate(got) * FC.FEATURE_SCALE,
+                              np.concatenate(want) * FC.FEATURE_SCALE)
+    print(f"phase 8 stored validation positives against the plain frontend ({BUILD_BATCH} clips, "
+          f"{res.cells} cells): max|d|={res.max_abs} exact_share={res.exact_share:.6f} "
+          f"q6_flips={res.q6_flips}", flush=True)
+    return {"launches": launches, "wav_root": wav_root, "stores": stores}
+
+
+def clips_feature(wav_root: str, name: str, truth: bool, weight: float, strategy: str,
+                  seed: int) -> dict:
+    """A clips-type feature set over ``name``_train/ with a POOL_SIZE pool."""
+    return {"type": "clips", "truth": truth, "sampling_weight": weight, "penalty_weight": 1.0,
+            "truncation_strategy": strategy, "pack_pool_size": POOL_SIZE,
+            "clips_settings": {"input_directory": os.path.join(wav_root, f"{name}_train"), "seed": seed},
+            "augmentation_settings": augmentation_settings(wav_root, seed + 1),
+            "spectrogram_generation_settings": {"step_ms": 10}}
+
+
+def mmap_feature(features_dir: str, truth: bool, weight: float, strategy: str) -> dict:
+    return {"type": "mmap", "features_dir": features_dir, "truth": truth, "sampling_weight": weight,
+            "penalty_weight": 1.0, "truncation_strategy": strategy}
+
+
+def audio_run(dev: torch.device, root: str, seed: int, label: str, steps: list, features: list,
+              extra_flags: list, **options):
+    """``run()`` of the notebook's recipe with ``raw_audio_training``; the
+    frontend launch count is set to 0 just before and read just after.
+    Returns (flags, config, out, wall s, peak bytes, launches)."""
+    flags = CLI.build_parser().parse_args(
+        ["--training_config", os.path.join(root, "unused.yaml"), "--device", dev.type]
+        + extra_flags + FLAGSHIP_FLAGS)
+    config = dict(recipe(root, seed), train_dir=os.path.join(root, label), training_steps=steps,
+                  learning_rates=[0.001, 0.0001][: len(steps)], raw_audio_training=True,
+                  features=features, **options)
+    config = derive_config(config, CLI.model_config_from_flags(flags))
+    check(config["spectrogram_length"] == 204, f"flagship input frames {config['spectrogram_length']}")
+    torch.cuda.reset_peak_memory_stats()
+    kernel.frontend_batch.launches = 0
+    t0 = time.perf_counter()
+    out = CLI.run(flags, config)
+    torch.cuda.synchronize()
+    launches = kernel.frontend_batch.launches
+    wall = time.perf_counter() - t0
+    return flags, config, out, wall, torch.cuda.max_memory_allocated(), launches
+
+
+def print_history(label: str, history: list) -> None:
+    for rec in history:
+        v = rec["validation"]
+        print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
+              f"{rec['train']['accuracy']:.4f}; validation accuracy {v.get('accuracy', float('nan')):.4f} "
+              f"faph {v.get('ambient_false_positives_per_hour', float('nan')):.3f}; pool swaps "
+              f"{rec.get('pool_swaps', 0)}; {rec['steps_per_sec']:.1f} steps/s (host clock, no sync)")
+
+
+def phase_raw_audio(dev: torch.device, smi: str, seed: int, root: str, built: dict) -> dict:
+    """Phase 9: raw-audio training at full width through run(): two
+    clips-type providers (pools of POOL_SIZE augmented clips on the card)
+    and phase 8's stores as validation- and testing-only mmap dirs.  Checks
+    the training as phase 6 does and that run() launched the frontend kernel
+    exactly 3 times per step; then, for the trained model, holds one step's
+    in-step features against the plain frontend on the same gathered windows
+    and times the step (measure_step)."""
+    wav_root, stores = built["wav_root"], built["stores"]
+    features = [clips_feature(wav_root, "pos", True, 2.0, "truncate_start", seed + 20),
+                clips_feature(wav_root, "neg", False, 10.0, "random", seed + 30),
+                mmap_feature(os.path.join(stores, "pos"), True, 2.0, "truncate_start"),
+                mmap_feature(os.path.join(stores, "neg"), False, 10.0, "random")]
+    flags, config, out, wall, peak, launches = audio_run(
+        dev, root, seed, "raw_audio", RAW_STEPS, features, ["--test_tf_nonstreaming", "1"])
+    steps = sum(RAW_STEPS)
+    history, length, batch = out["history"], config["spectrogram_length"], config["batch_size"]
+    check(launches == kernel.LAUNCHES_PER_CALL * steps,
+          f"run() launched the frontend kernel {launches} times in {steps} steps")
+    print(f"phase 9 run(): {steps} raw-audio steps of batch {batch} x {length} frames (pools of "
+          f"{POOL_SIZE} clips x 2 providers, {AUGMENTATION_S} s each), wall {wall:.2f} s with the "
+          f"pack, evals and the streamed ROC; frontend launches {launches}; peak memory "
+          f"{peak / 2**20:.1f} MiB ({smi})")
+    print_history("phase 9", history)
+    for name in ("best_weights.pt", "metrics.jsonl", os.path.join("streaming", "streaming_roc.txt")):
+        check(os.path.exists(os.path.join(config["train_dir"], name)), f"{name} was not written")
+
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    t0 = time.perf_counter()
+    packed = FeatureHandler(config, dev).pack_training_audio(dev, step_ms=config["window_step_ms"])
+    pack_s = time.perf_counter() - t0
+    check(isinstance(packed, sampler.PackedAudioData), f"packed {type(packed).__name__}")
+    init = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+    loss0 = float(training.make_train_step(
+        bundle, init, packed, batch, length,
+        generator=torch.Generator(device=dev).manual_seed(seed)).step(**phase)["loss"])
+    del init
+    last, auc = history[-1]["train"], out["streaming_roc"]["auc"]
+    val_acc = history[-1]["validation"]["accuracy"]
+    print(f"phase 9 pack of the audio pools: {pack_s:.2f} s ({packed.chunks.shape[0]:,} chunk rows, "
+          f"{packed.chunks.numel() * 2 / 1e6:.1f} MB of int16); streamed test ROC AUC {auc:.5f}; "
+          f"test accuracy {out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
+    check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
+    check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
+    check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
+    check(math.isfinite(auc), f"streamed AUC {auc}")
+
+    model = training.load_weights(bundle, os.path.join(config["train_dir"], "best_weights.pt"), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    train_step = training.make_train_step(bundle, model, packed, batch, length, generator=gen)
+    # one step's features: the step's own draw, then the kernel and the plain version
+    state = gen.get_state()
+    with torch.inference_mode():
+        pcm, _, _ = sampler.draw_audio_windows(packed, gen, batch, length)
+        got = sampler.audio_features(pcm, packed.hop_samples, length)
+        want = plain.frontend_batch(pcm, config["window_step_ms"])
+        gen.set_state(state)
+        in_step, _, _ = sampler.sample_audio_feature_batch(packed, gen, batch, length)
+    check(torch.equal(in_step, got), "the step's features are not the kernel's on its windows")
+    res = gate.assert_q6_gate(got.cpu().numpy(), want.cpu().numpy())
+    print(f"phase 9 in-step features {tuple(got.shape)} from int16 windows {tuple(pcm.shape)} "
+          f"against the plain frontend: max|d|={res.max_abs} exact_share={res.exact_share:.6f} "
+          f"q6_flips={res.q6_flips}", flush=True)
+    m = measure_step(train_step, phase)
+    audio_s = batch * pcm.shape[1] / FC.SAMPLE_RATE
+    print(f"phase 9 raw-audio step (flagship, batch {batch}, SpecAugment on, TF32 off): "
+          f"{m['step_ms']:.4f} ms per step by CUDA events over {TIMED_STEPS} steps "
+          f"({1e3 / m['step_ms']:.1f} steps/s, {audio_s * 1e3 / m['step_ms']:.0f} audio-s trained "
+          f"per s at {audio_s:.2f} audio-s per step; host clock {m['host_ms']:.4f} ms); frontend "
+          f"kernel {m['frontend_ms']:.4f} ms of device time per step, "
+          f"{m['frontend_ms'] / max(m['device_ms'] / PROFILED_STEPS, 1e-12):.4f} of the step's device "
+          f"time, {m['frontend_ms'] / m['step_ms']:.4f} of the step ({smi})")
+    print_profile("phase 9", m)
+    print(f"phase 9 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
+          f"raised nothing", flush=True)
+    return dict(m, launches=launches, steps=steps, max_abs=res.max_abs)
+
+
+def phase_mixed(dev: torch.device, smi: str, seed: int, root: str, built: dict,
+                spectrogram_root: str) -> dict:
+    """Phase 10: mixed training with pool refresh through run(): clips-type
+    positives (a POOL_SIZE pool) and phase 6's mmap negatives, phase 8's
+    positive store for validation, the pool refreshed every REFRESH_STEPS
+    steps (blocking, so the swaps happen).  Checks the launches (3 per step:
+    the audio sub-batch), the swaps and the training; then, on a fresh pack,
+    times the mixed step (measure_step), starts a PoolRefresher, times the
+    step while it builds, and checks that a swap changes the pool tensor's
+    contents in place, at the same shape."""
+    features = [clips_feature(built["wav_root"], "pos", True, 2.0, "truncate_start", seed + 40),
+                mmap_feature(os.path.join(spectrogram_root, "neg"), False, 10.0, "random"),
+                mmap_feature(os.path.join(built["stores"], "pos"), True, 2.0, "truncate_start")]
+    flags, config, out, wall, peak, launches = audio_run(
+        dev, root, seed, "mixed", MIXED_STEPS, features, ["--test_streaming", "0"],
+        eval_step_interval=REFRESH_STEPS, pool_refresh_steps=REFRESH_STEPS,
+        pool_refresh_blocking=True)
+    steps, history = sum(MIXED_STEPS), out["history"]
+    print(f"phase 10 run(): {steps} mixed steps, wall {wall:.2f} s with the pack, the blocking pool "
+          f"refreshes and evals; frontend launches {launches}; peak memory {peak / 2**20:.1f} MiB ({smi})")
+    print_history("phase 10", history)
+    check(launches == kernel.LAUNCHES_PER_CALL * steps,
+          f"run() launched the frontend kernel {launches} times in {steps} steps")
+    check(history[-1]["pool_swaps"] >= 1, f"pool swaps {history[-1]['pool_swaps']}")
+    check(math.isfinite(history[-1]["train"]["loss"]), "mixed training loss")
+    check(history[-1]["train"]["accuracy"] > 0.9, f"last train accuracy {history[-1]['train']}")
+
+    handler = FeatureHandler(config, dev)
+    t0 = time.perf_counter()
+    packed = handler.pack_training_audio(dev, step_ms=config["window_step_ms"])
+    pack_s = time.perf_counter() - t0
+    check(isinstance(packed, sampler.PackedMixedData), f"packed {type(packed).__name__}")
+    batch, length = config["batch_size"], config["spectrogram_length"]
+    b_audio, b_spec = sampler.mixed_batch_sizes(batch, packed.audio_fraction)
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    bundle = build_model("mixednet", config["model_config"])
+    model = training.load_weights(bundle, os.path.join(config["train_dir"], "best_weights.pt"), dev)
+    train_step = training.make_train_step(bundle, model, packed, batch, length,
+                                          generator=torch.Generator(device=dev).manual_seed(seed + 4))
+    m = measure_step(train_step, phase)
+    print(f"phase 10 mixed step ({b_audio} raw-audio + {b_spec} spectrogram rows, pack {pack_s:.2f} s): "
+          f"{m['step_ms']:.4f} ms per step by CUDA events over {TIMED_STEPS} steps (host clock "
+          f"{m['host_ms']:.4f} ms); frontend kernel {m['frontend_ms']:.4f} ms of device time per "
+          f"step ({smi})")
+    print_profile("phase 10", m)
+
+    chunks = packed.audio.chunks
+    before, ptr = chunks.clone(), chunks.data_ptr()
+    refresher = PoolRefresher(handler, packed, REFRESH_STEPS).start()
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_STEPS):
+            train_step.step(**phase)
+        end.record()
+        torch.cuda.synchronize()
+        refreshing_ms = start.elapsed_time(end) / TIMED_STEPS
+        t0 = time.perf_counter()
+        swapped = refresher.maybe_swap(packed, REFRESH_STEPS, block=True)
+        swap_s = time.perf_counter() - t0
+    finally:
+        refresher.stop()
+    check(swapped and refresher.swap_count == 1, "the refresher did not swap")
+    check(packed.audio.chunks.data_ptr() == ptr and packed.audio.chunks.shape == before.shape,
+          "the swap moved or reshaped the pool tensor")
+    changed = float((packed.audio.chunks != before).float().mean())
+    check(changed > 0.5, f"the swap changed {changed:.4f} of the pool's samples")
+    metrics = train_step.step(**phase)
+    check(math.isfinite(float(metrics["loss"])), "loss after the swap")
+    print(f"phase 10 pool refresh: {TIMED_STEPS} mixed steps while the worker built a pool, "
+          f"{refreshing_ms:.4f} ms per step by CUDA events; blocking swap {swap_s:.2f} s (the rest of "
+          f"the build and the copy); pool tensor {tuple(before.shape)} int16 kept in place, "
+          f"{changed:.4f} of its samples changed", flush=True)
+    return dict(m, launches=launches, steps=steps, refreshing_ms=refreshing_ms)
 
 
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
@@ -726,7 +1123,7 @@ def main() -> int:
           f"accept counts {accept_ms:.3f} ms; whole path {path_ms:.3f} ms for "
           f"{STREAMS * CLIP_S} audio-s ({smi})", flush=True)
     with torch.inference_mode():
-        wall_ms, device_ms, top, _ = device_profile(whole_path)
+        wall_ms, device_ms, top, _, _ = device_profile(whole_path)
     print(f"phase 5 profile of the whole path: wall {wall_ms:.3f} ms under the profiler, "
           f"device kernels {device_ms:.3f} ms, busy share under the profiler "
           f"{device_ms / wall_ms:.4f}"
@@ -734,22 +1131,33 @@ def main() -> int:
     for key, ms, count in top:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
 
-    # 6. training at full width; 7. the step on the card against the CPU
-    bundle, packed, phase = phase_training(dev, smi, args.seed)
-    phase_parity(bundle, packed, phase, dev, smi, args.seed)
-    del packed
+    with tempfile.TemporaryDirectory() as work:
+        # 6. training at full width; 7. the step on the card against the CPU
+        spectrograms = os.path.join(work, "spectrograms")
+        bundle, packed, phase = phase_training(dev, smi, args.seed, spectrograms)
+        phase_parity(bundle, packed, phase, dev, smi, args.seed)
+        del packed
+        # 8. the dataset build; 9. raw-audio training; 10. mixed training and pool refresh
+        built = phase_dataset(dev, smi, args.seed, work)
+        raw = phase_raw_audio(dev, smi, args.seed, work, built)
+        mixed = phase_mixed(dev, smi, args.seed, work, built, spectrograms)
 
-    # 8. the kernels line, then the last line
+    # 11. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
-        max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        max_abs_err=max(max_abs, raw["max_abs"]), ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, ms_a=times["serving"]["a"],
         ms_b=times["serving"]["b"], ms_carry=times["serving"]["carry"],
         ms_device=times["serving"]["device"], host_us_per_call=times["serving"]["host_us"],
         launches_per_call=kernel.LAUNCHES_PER_CALL,
         ms_train_window=times["training window"]["kernel"],
         bound_ms_train_window=times["training window"]["bound"],
+        launches_dataset_build=built["launches"],
+        launches_raw_audio_run=raw["launches"], raw_audio_steps=raw["steps"],
+        launches_per_raw_audio_step=raw["launches"] / raw["steps"],
+        ms_device_per_raw_audio_step=raw["frontend_ms"], raw_audio_step_ms=raw["step_ms"],
+        launches_mixed_run=mixed["launches"], mixed_step_ms=mixed["step_ms"],
     )]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,20 @@
-"""On-device training-batch sampler for precomputed spectrograms (port of
-data/sampler.py).
+"""On-device training-batch sampler (port of data/sampler.py).
 
-The whole training corpus lives on the card as one flat array of uint16
-feature rows, and batch assembly -- weighted provider choice, clip choice,
-truncation-window selection, left zero padding, uint16 -> float32 scaling and
-SpecAugment -- runs there from draws of a ``torch.Generator`` on the same
-device.  Nothing here waits for the card: no ``.item()``, no boolean-mask
-indexing, no ``torch.nonzero``.
+The whole training corpus lives on the card: precomputed spectrograms as one
+flat array of uint16 feature rows (``PackedTrainingData``), raw augmented
+audio as int16 hop chunks (``PackedAudioData``), or both
+(``PackedMixedData``).  Batch assembly -- weighted provider choice, clip
+choice, truncation-window selection, left zero padding, uint16 -> float32
+scaling or the frontend kernel on the gathered audio, and SpecAugment -- runs
+there from draws of a ``torch.Generator`` on the same device.  Nothing here
+waits for the card: no ``.item()``, no boolean-mask indexing, no
+``torch.nonzero``.
 
 JAX's threefry streams cannot be reproduced in torch, so each draw is split
-from what it drives: ``windows_from_draws`` and ``spec_augment_from_uniforms``
-compute windows and masks from given values exactly as ``_draw_windows`` and
-``apply_spec_augment`` do from their draws, and the wrappers here draw those
-values from the generator.  The provider draw is Gumbel-max, which is what
+from what it drives: ``windows_from_draws``, ``audio_windows_from_draws`` and
+``spec_augment_from_uniforms`` compute windows and masks from given values
+exactly as the JAX package does from its draws, and the wrappers here draw
+those values from the generator.  The provider draw is Gumbel-max, which is what
 ``jax.random.categorical`` computes.
 
 torch has no uint16 indexing on the card, so the corpus holds the store's
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 
 from microwakeword_tpu_torch.device import resolve_device
+from microwakeword_tpu_torch.frontend import constants as FC
 from microwakeword_tpu_torch.frontend.constants import FEATURE_SCALE
+from microwakeword_tpu_torch.frontend.kernel import frontend_batch
 
 MAX_CUTOFFS = 8
 
@@ -82,12 +86,15 @@ def windows_to_float(windows: torch.Tensor) -> torch.Tensor:
     return (windows.to(torch.int32) & 0xFFFF).to(torch.float32)
 
 
-def pack_training_arrays(providers, shard_index: int = 0, shard_count: int = 1) -> dict:
+def pack_training_arrays(providers, shard_index: int = 0, shard_count: int = 1,
+                         device=None) -> dict:
     """Concatenates every provider's training split into host numpy arrays
     keyed by PackedTrainingData field, in the JAX package's layout.
 
     Sharding keeps clips ``i % shard_count == shard_index`` of every store
-    (one process: everything).
+    (one process: everything).  A provider without stores (``ClipsFeatureSet``)
+    contributes its shard of a freshly augmented pool of spectrograms,
+    computed by the frontend on ``device`` (None: the card).
     """
     frames_parts, offsets, lengths = [], [], []
     p_logit, p_start, p_count, p_label, p_penalty, p_strategy = [], [], [], [], [], []
@@ -95,13 +102,16 @@ def pack_training_arrays(providers, shard_index: int = 0, shard_count: int = 1) 
     frame_pos = 0
     clip_pos = 0
     for p in providers:
-        if getattr(p, "stores", None) is None:
-            raise NotImplementedError(
-                "providers without ragged stores (generated audio pools) are not "
-                "ported yet: ROADMAP queue item 4, raw-audio and mixed training"
-            )
         n_clips = 0
-        for store in p.stores["training"]:
+        if getattr(p, "stores", None) is None:
+            arr, clip_lens = p.generate_pool(shard_index, shard_count, device)
+            if len(clip_lens):
+                frames_parts.append(arr)
+                offsets.append(np.concatenate([[0], np.cumsum(clip_lens)])[:-1] + frame_pos)
+                lengths.append(clip_lens)
+                frame_pos += arr.shape[0]
+                n_clips += len(clip_lens)
+        for store in (p.stores or {}).get("training", []):
             if shard_count > 1:
                 keep = np.arange(shard_index, len(store), shard_count)
                 if len(keep) == 0:
@@ -165,7 +175,8 @@ def upload_training_arrays(arrays: dict, device=None) -> PackedTrainingData:
 def pack_training_data(providers, device=None, shard_index: int = 0,
                        shard_count: int = 1) -> PackedTrainingData:
     """pack_training_arrays uploaded to ``device`` (default the card)."""
-    return upload_training_arrays(pack_training_arrays(providers, shard_index, shard_count), device)
+    return upload_training_arrays(
+        pack_training_arrays(providers, shard_index, shard_count, device), device)
 
 
 def window_rows(off: torch.Tensor, n: torch.Tensor, start: torch.Tensor, length: int):
@@ -300,3 +311,277 @@ def sample_batch(data: PackedTrainingData, generator: torch.Generator, batch_siz
     feats = finish_batch(generator, windows, valid, time_mask_max_size, time_mask_count,
                          freq_mask_max_size, freq_mask_count)
     return feats, labels, weights
+
+
+# ---- raw-audio training: the frontend inside the step -----------------------
+
+HOP_SAMPLES = 160  # 10 ms at 16 kHz (the default window_step_ms=10 hop)
+
+
+def window_chunks_for_hop(hop_samples: int) -> int:
+    """Chunk rows a 480-sample frontend window spans (ceil): 3 at the 10 ms
+    hop (exact), 2 at the 20 ms hop (640 gathered, 480 used)."""
+    return -(-FC.WINDOW_SAMPLES // hop_samples)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedAudioData:
+    """Raw-audio training corpus on the card, hop-aligned.
+
+    Audio is stored as [total_chunks, hop_samples] int16, one row per feature
+    hop (160 samples at the 10 ms step, 320 at 20 ms); every clip is
+    zero-padded to whole chunks, so a window is a gather of chunk rows.  The
+    train step samples windows from here and runs the frontend kernel on them
+    (reference ClipsHandlerWrapperGenerator, data.py:324-402, in the JAX
+    package's layout).
+    """
+
+    chunks: torch.Tensor  # [total_chunks, hop_samples] int16
+    clip_offset: torch.Tensor  # [n_clips] int32 chunk offset
+    clip_chunks: torch.Tensor  # [n_clips] int32 chunk count
+    provider_logits: torch.Tensor  # [P] f32
+    provider_clip_start: torch.Tensor  # [P] int32
+    provider_clip_count: torch.Tensor  # [P] int32
+    provider_label: torch.Tensor  # [P] f32
+    provider_penalty: torch.Tensor  # [P] f32
+    provider_strategy: torch.Tensor  # [P] int32
+    hop_samples: int = HOP_SAMPLES
+    edge_pad: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks.device
+
+
+def clip_to_int16(clip: np.ndarray) -> np.ndarray:
+    """A float [-1, 1] clip -> int16 by round(clip(x * 32768)); int16 as is."""
+    clip = np.asarray(clip)
+    if clip.dtype == np.int16:
+        return clip
+    return np.round(np.clip(clip * 32768.0, -32768.0, 32767.0)).astype(np.int16)
+
+
+def pack_audio_data(providers, device=None, shard_index: int = 0, shard_count: int = 1,
+                    step_ms: int = 10) -> PackedAudioData:
+    """Packs the providers' raw augmented audio pools into chunk rows on
+    ``device`` (None: the card), in the JAX package's layout: EDGE_PAD zero
+    chunks before the first clip and after the last, the total a multiple of
+    WIDE_K, every clip at least one frontend window long.
+
+    Every provider must have ``generate_audio_pool(shard_index, shard_count)``
+    (float [-1, 1] or int16 clips; ``ClipsFeatureSet`` has it).  ``step_ms``
+    (config window_step_ms) sets the chunk width, 16 * step_ms samples.
+    """
+    dev = resolve_device(device)
+    hop = 16 * int(step_ms)
+    min_chunks = window_chunks_for_hop(hop)
+    chunk_parts, offsets, counts = [], [], []
+    p_logit, p_start, p_count, p_label, p_penalty, p_strategy = [], [], [], [], [], []
+    chunk_pos = EDGE_PAD
+    clip_pos = 0
+    for p in providers:
+        if not hasattr(p, "generate_audio_pool"):
+            raise ValueError(
+                f"provider {type(p).__name__} has no raw audio (generate_audio_pool); "
+                "raw-audio training requires clips-type feature sets")
+        n_clips = 0
+        for clip in p.generate_audio_pool(shard_index, shard_count):
+            clip = clip_to_int16(clip)
+            n = max(-(-len(clip) // hop), min_chunks)
+            padded = np.zeros(n * hop, np.int16)
+            padded[: len(clip)] = clip
+            chunk_parts.append(padded.reshape(n, hop))
+            offsets.append(chunk_pos)
+            counts.append(n)
+            chunk_pos += n
+            n_clips += 1
+        if n_clips == 0:
+            continue
+        p_logit.append(np.log(p.sampling_weight) if p.sampling_weight > 0 else -1e30)
+        p_start.append(clip_pos)
+        p_count.append(n_clips)
+        p_label.append(p.label)
+        p_penalty.append(p.penalty_weight)
+        p_strategy.append(_STRATEGY_IDS[p.truncation_strategy])
+        clip_pos += n_clips
+    if not chunk_parts:
+        raise ValueError("no audio clips found in any provider")
+    total = chunk_pos - EDGE_PAD
+    end_pad = EDGE_PAD + (-(EDGE_PAD + total)) % WIDE_K
+    chunks = np.concatenate([np.zeros((EDGE_PAD, hop), np.int16)] + chunk_parts
+                            + [np.zeros((end_pad, hop), np.int16)])
+
+    def put(values, dtype):
+        return torch.from_numpy(np.asarray(values, dtype)).to(dev)
+
+    return PackedAudioData(
+        chunks=torch.from_numpy(chunks).to(dev),
+        clip_offset=put(offsets, np.int32),
+        clip_chunks=put(counts, np.int32),
+        provider_logits=put(p_logit, np.float32),
+        provider_clip_start=put(p_start, np.int32),
+        provider_clip_count=put(p_count, np.int32),
+        provider_label=put(p_label, np.float32),
+        provider_penalty=put(p_penalty, np.float32),
+        provider_strategy=put(p_strategy, np.int32),
+        hop_samples=hop,
+        edge_pad=EDGE_PAD,
+    )
+
+
+def audio_windows_from_draws(data: PackedAudioData, prov: torch.Tensor, u_clip: torch.Tensor,
+                             u_win: torch.Tensor, features_length: int):
+    """The windows of one raw-audio draw: provider ids [B] and two [B]
+    uniforms (clip, random start) -> (PCM [B, (L + wc - 1) * hop] int16,
+    labels [B], weights [B]), placed as the JAX package's
+    sample_audio_feature_batch places them (wc = window_chunks_for_hop).
+
+    A window of L frames spans L + wc - 1 chunk rows: at 10 ms (L + 2) * 160
+    samples give exactly L frames, at 20 ms (L + 1) * 320 do.  Clips longer
+    than the window start per truncation strategy (fixed_right_cutoff and the
+    eval-only strategies as random); shorter ones are right-aligned behind
+    leading silence.  Rows outside the clip are zero.
+    """
+    off, n, start = audio_window_starts(data, prov, u_clip, u_win, features_length)
+    n_chunks = features_length + window_chunks_for_hop(data.hop_samples) - 1
+    windows, valid = gather_windows(data.chunks, off, n, start, n_chunks)
+    pcm = torch.where(valid[:, :, None], windows, 0)  # int16
+    return (pcm.reshape(len(prov), n_chunks * data.hop_samples), data.provider_label[prov],
+            data.provider_penalty[prov])
+
+
+def audio_window_starts(data: PackedAudioData, prov: torch.Tensor, u_clip: torch.Tensor,
+                        u_win: torch.Tensor, features_length: int):
+    """The chunk placement of ``audio_windows_from_draws``: (clip chunk offset
+    [B], clip chunks [B], window start relative to the clip [B])."""
+    n_chunks = features_length + window_chunks_for_hop(data.hop_samples) - 1
+    count = data.provider_clip_count[prov]
+    clip = data.provider_clip_start[prov] + torch.minimum(
+        torch.floor(u_clip * count).to(torch.int32), count - 1)
+    n = data.clip_chunks[clip]
+    strategy = data.provider_strategy[prov]
+    start_random = torch.floor(u_win * torch.clamp(n - n_chunks, min=1)).to(torch.int32)
+    start_long = torch.where(strategy == TRUNCATE_START, n - n_chunks,
+                             torch.where(strategy == TRUNCATE_END, torch.zeros_like(n), start_random))
+    return data.clip_offset[clip], n, torch.where(n > n_chunks, start_long, n - n_chunks)
+
+
+def audio_features(pcm: torch.Tensor, hop_samples: int, features_length: int) -> torch.Tensor:
+    """Features [B, L, 40] of the gathered windows: the frontend kernel on the
+    card (3 launches), its plain version on the CPU.  Each window's noise
+    estimate starts from zero, as the JAX package's in-step frontend does."""
+    feats = frontend_batch(pcm, hop_samples // 16)
+    if feats.shape[1] != features_length:
+        raise ValueError(f"{pcm.shape[1]} samples gave {feats.shape[1]} frames, "
+                         f"not {features_length}")
+    return feats
+
+
+def draw_audio_windows(data: PackedAudioData, generator: torch.Generator, batch_size: int,
+                       features_length: int):
+    """The raw-audio step's draw and gather: a Gumbel-max provider, clip and
+    start uniforms from ``generator``, then ``audio_windows_from_draws``.
+    Returns (PCM [B, (L + wc - 1) * hop] int16, labels [B], weights [B])."""
+    p = data.provider_logits.shape[0]
+    u = torch.rand((batch_size, p + 2), generator=generator, device=data.device)
+    prov = torch.argmax(data.provider_logits - torch.log(-torch.log(u[:, :p])), dim=1)
+    return audio_windows_from_draws(data, prov, u[:, p], u[:, p + 1], features_length)
+
+
+def sample_audio_feature_batch(data: PackedAudioData, generator: torch.Generator,
+                               batch_size: int, features_length: int,
+                               time_mask_max_size: int = 0, time_mask_count: int = 0,
+                               freq_mask_max_size: int = 0, freq_mask_count: int = 0):
+    """One raw-audio training batch on the card: the draw and chunk gather
+    (``draw_audio_windows``), the frontend (``audio_features``) and
+    SpecAugment.  Returns (features [B, L, 40] float32 in [0, 26], labels
+    [B], weights [B]).
+
+    The frontend runs on the sampled window only, so the noise estimate
+    starts fresh at the window start (the reference's on-the-fly mode
+    computes a whole clip before truncating, data.py:324-402; the difference
+    is a few frames of gain ramp at the start, like a clip recorded from
+    silence).
+    """
+    pcm, labels, weights = draw_audio_windows(data, generator, batch_size, features_length)
+    feats = audio_features(pcm, data.hop_samples, features_length)
+    if time_mask_count or freq_mask_count:
+        feats = apply_spec_augment(generator, feats, time_mask_max_size, time_mask_count,
+                                   freq_mask_max_size, freq_mask_count)
+    return feats, labels, weights
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedMixedData:
+    """Mixed-provider raw-audio corpus: clips-type providers as raw audio (the
+    in-step frontend) and mmap providers as precomputed spectrograms, in one
+    step (the reference FeatureHandler mixes provider types per sample,
+    data.py:405-466).
+
+    The batch splits into two sub-batches of static size in proportion to the
+    two classes' total sampling weight (``audio_fraction``), and providers
+    are drawn within each: each sample's provider has the reference's
+    distribution in expectation, the batch's composition the binomial mean.
+    """
+
+    audio: PackedAudioData
+    spec: PackedTrainingData
+    audio_fraction: float = 0.5
+
+    @property
+    def device(self) -> torch.device:
+        return self.audio.device
+
+
+def pack_mixed_data(providers, device=None, shard_index: int = 0, shard_count: int = 1,
+                    step_ms: int = 10):
+    """Packs a provider list for raw-audio training on ``device``: all
+    clips-type -> PackedAudioData; clips-type and mmap -> PackedMixedData;
+    all mmap -> PackedTrainingData.  mmap providers with no training clips
+    (validation- or testing-only feature dirs) join no training corpus."""
+    audio_p = [p for p in providers if hasattr(p, "generate_audio_pool")]
+    spec_p = [p for p in providers if not hasattr(p, "generate_audio_pool")
+              and any(len(s) for s in (p.stores or {}).get("training", []))]
+    if not spec_p:
+        return pack_audio_data(audio_p, device, shard_index, shard_count, step_ms)
+    if not audio_p:
+        return pack_training_data(providers, device, shard_index, shard_count)
+    w_audio = sum(p.sampling_weight for p in audio_p)
+    w_spec = sum(p.sampling_weight for p in spec_p)
+    return PackedMixedData(
+        audio=pack_audio_data(audio_p, device, shard_index, shard_count, step_ms),
+        spec=pack_training_data(spec_p, device, shard_index, shard_count),
+        audio_fraction=float(w_audio / max(w_audio + w_spec, 1e-12)),
+    )
+
+
+def mixed_batch_sizes(batch_size: int, audio_fraction: float) -> tuple[int, int]:
+    """(raw-audio rows, spectrogram rows): round(B * fraction) clamped to
+    [1, B - 1]."""
+    b_audio = max(1, min(batch_size - 1, int(round(batch_size * audio_fraction))))
+    return b_audio, batch_size - b_audio
+
+
+def sample_mixed_batch(data: PackedMixedData, generator: torch.Generator, batch_size: int,
+                       features_length: int, time_mask_max_size: int = 0,
+                       time_mask_count: int = 0, freq_mask_max_size: int = 0,
+                       freq_mask_count: int = 0):
+    """One mixed batch on the card: the raw-audio sub-batch (windows -> the
+    frontend kernel) followed by the spectrogram sub-batch."""
+    b_audio, b_spec = mixed_batch_sizes(batch_size, data.audio_fraction)
+    masks = dict(time_mask_max_size=time_mask_max_size, time_mask_count=time_mask_count,
+                 freq_mask_max_size=freq_mask_max_size, freq_mask_count=freq_mask_count)
+    fa, la, wa = sample_audio_feature_batch(data.audio, generator, b_audio, features_length, **masks)
+    fs, ls, ws = sample_batch(data.spec, generator, b_spec, features_length, **masks)
+    return torch.cat([fa, fs]), torch.cat([la, ls]), torch.cat([wa, ws])
+
+
+def sample_any(packed, generator: torch.Generator, batch_size: int, features_length: int,
+               **masks):
+    """One training batch from any packed corpus, by its kind (the JAX
+    package's make_train_step dispatch, train/loop.py:164-203)."""
+    if isinstance(packed, PackedAudioData):
+        return sample_audio_feature_batch(packed, generator, batch_size, features_length, **masks)
+    if isinstance(packed, PackedMixedData):
+        return sample_mixed_batch(packed, generator, batch_size, features_length, **masks)
+    return sample_batch(packed, generator, batch_size, features_length, **masks)

@@ -4,9 +4,10 @@ data/store.py).
 Host-side equivalent of the reference FeatureHandler with the same YAML
 schema and sampling semantics.  ``get_data`` assembles evaluation sets on the
 host; training batches are drawn on the card from the corpus that
-``pack_training`` uploads (``data/sampler.py``).  Only ``type: mmap`` feature
-sets are ported; ``type: clips`` (generated audio) waits for raw-audio
-training.
+``pack_training`` (spectrograms) or ``pack_training_audio`` (raw audio, the
+in-step frontend) uploads (``data/sampler.py``).  ``type: mmap`` feature sets
+read ragged stores from disk; ``type: clips`` sets generate augmented audio
+from WAV clips (``ClipsFeatureSet``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ from pathlib import Path
 
 import numpy as np
 
+from microwakeword_tpu_torch.audio.augmentation import Augmentation
+from microwakeword_tpu_torch.audio.clips import Clips
+from microwakeword_tpu_torch.audio.spectrograms import SpectrogramGeneration
 from microwakeword_tpu_torch.data.ragged_store import open_ragged
-from microwakeword_tpu_torch.data.sampler import pack_training_data
+from microwakeword_tpu_torch.data.sampler import pack_mixed_data, pack_training_data
 from microwakeword_tpu_torch.frontend import constants as FC
 
 MODES = ("training", "validation", "testing", "validation_ambient", "testing_ambient")
@@ -215,11 +219,88 @@ class MmapFeatureSet:
         return np.concatenate(outs, axis=0)
 
 
+class ClipsFeatureSet:
+    """On-the-fly feature set: freshly augmented audio from WAV clips
+    (reference ClipsHandlerWrapperGenerator, data.py:324-402).  Training only;
+    every other mode is empty.
+
+    The on-device sampler needs the corpus on the card, so a pool of
+    ``pack_pool_size`` augmented clips is materialized at pack time: raw audio
+    for raw-audio training (``generate_audio_pool``), spectrograms otherwise
+    (``generate_pool``).  The host-side ``get_random_spectrogram`` draws a
+    fresh augmentation per sample, as the reference does.
+    """
+
+    stores = None  # marker: no ragged stores on disk
+
+    def __init__(self, clips_settings: dict, augmentation_settings: dict,
+                 spectrogram_generation_settings: dict, truth: bool, sampling_weight: float,
+                 penalty_weight: float, truncation_strategy: str, pack_pool_size: int = 2000,
+                 device=None):
+        self.label = float(truth)
+        self.sampling_weight = float(sampling_weight)
+        self.penalty_weight = float(penalty_weight)
+        self.truncation_strategy = truncation_strategy
+        self.fixed_right_cutoffs = [0]
+        self.pack_pool_size = int(pack_pool_size)
+        self.spectrogram_generation = SpectrogramGeneration(
+            Clips(**clips_settings), Augmentation(**augmentation_settings),
+            **spectrogram_generation_settings, device=device)
+        self._generator = self.spectrogram_generation.spectrogram_generator(random=True)
+
+    def get_mode_size(self, mode: str) -> int:
+        return len(self.spectrogram_generation.clips.clips) if mode == "training" else 0
+
+    def get_mode_duration(self, mode: str) -> float:
+        return 0.0
+
+    def get_random_spectrogram(self, mode, features_length, truncation_strategy, rng=None):
+        if truncation_strategy == "default":
+            truncation_strategy = self.truncation_strategy
+        return _scale(fixed_length_spectrogram(
+            next(self._generator), features_length, truncation_strategy, 0, rng))
+
+    def feature_generator(self, mode, features_length, truncation_strategy="default"):
+        """Training-only provider: deterministic passes yield nothing
+        (reference data.py:395-402)."""
+        return iter(())
+
+    def gather_mode(self, mode, features_length, truncation_strategy="default"):
+        return None
+
+    def _pool_size(self, shard_count: int) -> int:
+        return max(1, self.pack_pool_size // max(1, shard_count))
+
+    def _audio_pool(self, n: int) -> list[np.ndarray]:
+        """n freshly augmented raw clips (float32 in [-1, 1])."""
+        sg = self.spectrogram_generation
+        gen = sg.clips.random_audio_generator()
+        if sg.augmenter is not None:
+            gen = sg.augmenter.augment_generator(gen)
+        return [np.asarray(next(gen), np.float32) for _ in range(n)]
+
+    def generate_audio_pool(self, shard_index: int = 0, shard_count: int = 1) -> list[np.ndarray]:
+        """This shard's raw augmented clips for ``sampler.pack_audio_data``:
+        the train step computes their features on the card."""
+        return self._audio_pool(self._pool_size(shard_count))
+
+    def generate_pool(self, shard_index: int = 0, shard_count: int = 1, device=None):
+        """This shard's sampler pool of spectrograms: (frames uint16
+        [sum(T_i), 40], lengths int64 [n]), the clips through the batched
+        frontend on ``device`` (None: the card)."""
+        specs = list(self.spectrogram_generation.batched_spectrograms(
+            self._audio_pool(self._pool_size(shard_count)), device, batch=64))
+        lengths = np.asarray([s.shape[0] for s in specs], np.int64)
+        return np.concatenate(specs, axis=0), lengths
+
+
 class FeatureHandler:
     """Loads all configured feature sets (reference FeatureHandler,
-    data.py:405-597); the config schema is the reference YAML's."""
+    data.py:405-597); the config schema is the reference YAML's.  ``device``
+    (None: the card) runs the frontend of clips-type sets' host-side draws
+    (``get_data("training")``)."""
 
-    def __init__(self, config: dict):
+    def __init__(self, config: dict, device=None):
         self.providers: list = []
         stride = config.get("stride", 1)
         step_ms = config.get("window_step_ms", 10)
@@ -232,10 +313,12 @@ class FeatureHandler:
                     fixed_right_cutoffs=fs.get("fixed_right_cutoffs"),
                 ))
             elif kind == "clips":
-                raise NotImplementedError(
-                    "type: clips feature sets (generated audio) are not ported yet: "
-                    "ROADMAP queue item 4, raw-audio and mixed training"
-                )
+                self.providers.append(ClipsFeatureSet(
+                    fs["clips_settings"], fs.get("augmentation_settings", {}),
+                    fs.get("spectrogram_generation_settings", {}), fs["truth"],
+                    fs["sampling_weight"], fs["penalty_weight"], fs["truncation_strategy"],
+                    pack_pool_size=fs.get("pack_pool_size", 2000), device=device,
+                ))
             else:
                 raise NotImplementedError(f"feature set type {kind!r} not supported")
 
@@ -304,5 +387,16 @@ class FeatureHandler:
 
     def pack_training(self, device=None, shard_index: int = 0, shard_count: int = 1):
         """Every training split on ``device`` (default the card) for the
-        on-device sampler (``data/sampler.py``)."""
+        on-device sampler (``data/sampler.py``); clips-type sets contribute a
+        pool of spectrograms computed on ``device``."""
         return pack_training_data(self.providers, device, shard_index, shard_count)
+
+    def pack_training_audio(self, device=None, shard_index: int = 0, shard_count: int = 1,
+                            step_ms: int = 10):
+        """Packs for in-step frontend training (config ``raw_audio_training:
+        true``): clips-type sets contribute raw augmented audio, mmap sets
+        precomputed spectrograms, so a mixed config (e.g. generated positives
+        and precomputed negatives, the reference's usual recipe,
+        data.py:405-466) trains on one step through ``PackedMixedData``.
+        ``step_ms`` is the frontend hop (config window_step_ms)."""
+        return pack_mixed_data(self.providers, device, shard_index, shard_count, step_ms)

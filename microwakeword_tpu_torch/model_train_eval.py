@@ -136,7 +136,7 @@ def run(flags, config: dict) -> dict:
     mesh = _mesh_devices(flags.mesh)
     device = resolve_device(flags.device)
     bundle = build_model(flags.model_name, config["model_config"])
-    feature_handler = FeatureHandler(config)
+    feature_handler = FeatureHandler(config, device)
 
     train_dir = config["train_dir"]
     out = {"history": None, "streaming_roc": None, "accuracy": None}

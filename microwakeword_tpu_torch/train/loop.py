@@ -1,7 +1,10 @@
 """Training loop (port of train/loop.py): on-device sampling, the train-mode
 forward and backward, weighted BCE and Adam on one flat parameter vector,
 periodic validation with two-step best-checkpoint selection, and
-checkpoints.
+checkpoints.  The corpus on the card is spectrograms, raw augmented audio
+(config ``raw_audio_training``: the frontend kernel runs inside the step) or
+both, and ``pool_refresh_steps`` refreshes the audio pools from a host thread
+(``data/refresh.py``).
 
 Schedules are padded with their last entry, Adam runs on probabilities'
 weighted BCE, validation runs every ``eval_step_interval`` steps and writes
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from microwakeword_tpu_torch.data import sampler as S
+from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.train import metrics as M
 
@@ -97,13 +101,15 @@ class TrainStep:
     ``1 - b ** count``, ``m_hat / (sqrt(v_hat) + eps)``, times ``-lr``.
     The BatchNorm statistics update in the module's buffers.
 
-    ``step(**phase)`` draws the batch from the corpus with ``generator``;
-    ``step_on_batch`` takes a gathered batch instead (the JAX package's
-    host-streamed form), [steps, B, ...] when ``steps_per_call`` > 1.
+    ``step(**phase)`` draws the batch from the corpus with ``generator``
+    (``sampler.sample_any``: spectrograms, raw audio through the frontend
+    kernel, or both); ``step_on_batch`` takes a gathered batch of
+    spectrogram windows instead (the JAX package's host-streamed form),
+    [steps, B, ...] when ``steps_per_call`` > 1.
     Either reports the last sub-step's metrics (0-dim tensors).
     """
 
-    def __init__(self, bundle, model: torch.nn.Module, packed: S.PackedTrainingData | None,
+    def __init__(self, bundle, model: torch.nn.Module, packed,
                  batch_size: int, features_length: int, steps_per_call: int = 1,
                  generator: torch.Generator | None = None):
         self.bundle = bundle
@@ -179,7 +185,7 @@ class TrainStep:
         on the card; the last sub-step's metrics."""
         masks, opt = self._split_phase(phase)
         for _ in range(self.steps_per_call if steps is None else steps):
-            feats, labels, penalties = S.sample_batch(
+            feats, labels, penalties = S.sample_any(
                 self.packed, self.generator, self.batch_size, self.features_length, **masks)
             last = self._sub_step(feats, labels, penalties, **opt)
         return self._report(last)
@@ -200,8 +206,8 @@ class TrainStep:
 
 def make_train_step(bundle, model, packed, batch_size: int, features_length: int,
                     steps_per_call: int = 1, generator: torch.Generator | None = None) -> TrainStep:
-    """The train step over ``packed`` (PackedTrainingData on the model's
-    device); see TrainStep."""
+    """The train step over ``packed`` (PackedTrainingData, PackedAudioData or
+    PackedMixedData on the model's device); see TrainStep."""
     return TrainStep(bundle, model, packed, batch_size, features_length, steps_per_call, generator)
 
 
@@ -252,7 +258,7 @@ def model_summary(model: torch.nn.Module) -> str:
 
 
 def _pack_corpus(providers, config: dict, device: torch.device) -> S.PackedTrainingData:
-    """The training corpus on ``device`` (config ``corpus_residency``: auto
+    """The spectrogram corpus on ``device`` (config ``corpus_residency``: auto
     and hbm keep it there; host streaming is not ported)."""
     residency = str(config.get("corpus_residency", "auto"))
     if residency == "host":
@@ -260,7 +266,7 @@ def _pack_corpus(providers, config: dict, device: torch.device) -> S.PackedTrain
             "corpus_residency: host is not ported yet: ROADMAP queue item 5, host streaming")
     if residency not in ("auto", "hbm"):
         raise ValueError(f"corpus_residency must be auto|hbm|host, got {residency!r}")
-    arrays = S.pack_training_arrays(providers)
+    arrays = S.pack_training_arrays(providers, device=device)
     if device.type == "cuda":
         nbytes = sum(a.nbytes for a in arrays.values() if hasattr(a, "nbytes"))
         free, _ = torch.cuda.mem_get_info(device)
@@ -271,13 +277,15 @@ def _pack_corpus(providers, config: dict, device: torch.device) -> S.PackedTrain
     return S.upload_training_arrays(arrays, device)
 
 
+# config frontend_backend: the JAX package's two in-step frontends (XLA ops
+# or its Pallas kernel); both name the port's one frontend, the CUDA kernel.
+FRONTEND_BACKENDS = ("xla", "pallas")
+
+
 def _check_ported(config: dict, mesh) -> None:
-    if config.get("raw_audio_training"):
-        raise NotImplementedError(
-            "raw_audio_training is not ported yet: ROADMAP queue item 4, raw-audio and mixed training")
-    if int(config.get("pool_refresh_steps", 0) or 0) > 0:
-        raise NotImplementedError(
-            "pool_refresh_steps is not ported yet: ROADMAP queue item 5, pool refresh")
+    backend = config.get("frontend_backend", "xla")
+    if backend not in FRONTEND_BACKENDS:
+        raise ValueError(f"frontend_backend must be one of {FRONTEND_BACKENDS}, got {backend!r}")
     if mesh not in (None, 1):
         raise NotImplementedError(
             f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 7, multi-GPU")
@@ -292,24 +300,28 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     learning_rates, *_mask_*, positive/negative_class_weight, batch_size,
     spectrogram_length, eval_step_interval, train_dir, minimization_metric,
     maximization_metric, target_minimization, seed, steps_per_call,
-    profile_dir.  ``mesh`` is a device count; only one is ported.
+    profile_dir, raw_audio_training, window_step_ms, frontend_backend,
+    pool_refresh_steps, pool_refresh_blocking.  ``mesh`` is a device count;
+    only one is ported.
     """
     dev = resolve_device(device)
     _check_ported(config, mesh)
     train_dir = config["train_dir"]
     os.makedirs(train_dir, exist_ok=True)
-    phases = resolve_schedules(config)
-    total_steps = sum(p["steps"] for p in phases)
     batch_size = int(config.get("batch_size", 128))
     features_length = int(config["spectrogram_length"])
-    eval_interval = int(config.get("eval_step_interval", 500))
     seed = int(config.get("seed", 0))
 
     model = bundle.init(torch.Generator().manual_seed(seed), device=dev)
     with open(os.path.join(train_dir, "model_summary.txt"), "w") as f:
         f.write(model_summary(model) + "\n")
 
-    packed = _pack_corpus(feature_handler.providers, config, dev)
+    if config.get("raw_audio_training"):
+        # audio pools are bounded by pack_pool_size: no corpus budget check
+        packed = feature_handler.pack_training_audio(
+            dev, step_ms=int(config.get("window_step_ms", 10)))
+    else:
+        packed = _pack_corpus(feature_handler.providers, config, dev)
     spc_cfg = config.get("steps_per_call", "auto")
     # auto: one step per call on the card for now (a CUDA graph of the step
     # is queued in ROADMAP item 8)
@@ -318,7 +330,28 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     train_step = make_train_step(bundle, model, packed, batch_size, features_length,
                                  steps_per_call, generator)
     eval_probs = make_eval_fn(bundle)
+    refresher = None
+    refresh_steps = int(config.get("pool_refresh_steps", 0) or 0)
+    if refresh_steps > 0:
+        refresher = PoolRefresher(feature_handler, packed, refresh_steps).start()
+    try:
+        return _train_loop(config, feature_handler, restore_checkpoint, model, train_step,
+                           eval_probs, refresher)
+    finally:
+        if refresher is not None:
+            refresher.stop()
 
+
+def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
+                train_step: TrainStep, eval_probs, refresher):
+    """train()'s steps, evals and checkpoints; returns (model, history)."""
+    train_dir = config["train_dir"]
+    phases = resolve_schedules(config)
+    total_steps = sum(p["steps"] for p in phases)
+    batch_size, features_length = train_step.batch_size, train_step.features_length
+    eval_interval = int(config.get("eval_step_interval", 500))
+    steps_per_call = train_step.steps_per_call
+    dev = train_step.device
     restored_from_step = 0
     ckpt_path = os.path.join(train_dir, "restore", "ckpt.pt")
     if restore_checkpoint and os.path.exists(ckpt_path):
@@ -331,7 +364,7 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
         restored_from_step = int(restored["step"])
 
     # --- validation data, assembled once ------------------------------
-    data_rng = np.random.default_rng(seed)
+    data_rng = np.random.default_rng(int(config.get("seed", 0)))
     has_val = feature_handler.get_mode_size("validation") > 0
     val_x = val_y = None
     if has_val:
@@ -390,6 +423,9 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
         step_metrics = train_step.step(steps=n, **{k: v for k, v in phase.items() if k != "steps"})
         step_times.append((n, time.perf_counter() - t0))
         step += n
+        if refresher is not None:
+            refresher.maybe_swap(train_step.packed, step,
+                                 block=bool(config.get("pool_refresh_blocking", False)))
         if profiler is not None and profile_dir and step >= profile_end:
             profiler.stop()
             os.makedirs(profile_dir, exist_ok=True)
@@ -445,6 +481,8 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
                 "best_no_faph_cutoff": best_no_faph_cutoff,
                 "steps_per_sec": float(sum(n for n, _ in recent) / max(sum(t for _, t in recent), 1e-9)),
             }
+            if refresher is not None:
+                record["pool_swaps"] = refresher.swap_count
             history.append(record)
             with open(history_path, "a") as f:
                 f.write(json.dumps(record) + "\n")

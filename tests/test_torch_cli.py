@@ -7,6 +7,8 @@ store, against the JAX package where it has a counterpart.
   names and resumes from ``restore/ckpt.pt``;
 - ``streaming_model_roc`` and ``model_accuracy`` equal JAX's on the same
   weights and store (AUC and curves to 1e-6);
+- raw-audio training (clips-type sets, alone, mixed with mmap sets, and
+  with pool refresh) learns the JAX package's tone task through the CLI;
 - what the port does not carry yet raises NotImplementedError naming its
   ROADMAP queue item.
 """
@@ -27,6 +29,7 @@ from microwakeword_tpu.evaluate import streaming_eval as JE
 from microwakeword_tpu.models import build_model as jax_build_model
 from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
 from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.audio.io import save_clip
 from microwakeword_tpu_torch.config import derive_config
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
 from microwakeword_tpu_torch.data.store import FeatureHandler
@@ -244,21 +247,86 @@ def test_inception_raises(store):
                   "inception"])
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"raw_audio_training": True}, "item 4"),
-    ({"corpus_residency": "host"}, "item 5"),
-    ({"pool_refresh_steps": 10}, "item 5"),
-])
-def test_train_options_not_ported_raise(trained, tmp_path, option, item):
+def test_train_options_not_ported_raise(trained, tmp_path):
     _, config, _ = trained
-    config = dict(config, train_dir=str(tmp_path / "run"), **option)
-    with pytest.raises(NotImplementedError, match=item):
+    config = dict(config, train_dir=str(tmp_path / "run"), corpus_residency="host")
+    with pytest.raises(NotImplementedError, match="item 5"):
         T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
                 device="cpu")
 
 
-def test_clips_feature_sets_raise(store):
-    _, config = store
-    config = dict(config, features=[{"type": "clips", "truth": True}])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        FeatureHandler(config)
+@pytest.mark.parametrize("option,match", [
+    ({"frontend_backend": "tpu"}, "frontend_backend must be one of"),
+    ({"pool_refresh_steps": 10}, "requires raw-audio training"),  # a spectrogram corpus
+])
+def test_train_options_refused(trained, tmp_path, option, match):
+    _, config, _ = trained
+    config = dict(config, train_dir=str(tmp_path / "run"), **option)
+    with pytest.raises(ValueError, match=match):
+        T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
+                device="cpu")
+
+
+# ---- raw-audio and mixed training (tests/test_data.py:380, 477, 578) -------
+
+
+@pytest.fixture(scope="module")
+def audio_root(tmp_path_factory):
+    """pos/ and neg/ WAVs of pulsed tones (the frontend's noise suppression
+    removes stationary signals, so the separable signal is transient), and
+    spec_neg/, precomputed negatives with low-channel energy."""
+    root = tmp_path_factory.mktemp("cli_audio")
+    rng = np.random.default_rng(0)
+    t = np.arange(24000)
+    gate = (np.sin(2 * np.pi * 8.0 * t / 16000) > 0).astype(np.float32)
+    for name, freqs in (("pos", (2000, 2400)), ("neg", (200, 300))):
+        (root / name).mkdir()
+        for i, f0 in enumerate(freqs):
+            tone = 0.4 * gate * np.sin(2 * np.pi * f0 * t / 16000) + 0.004 * rng.standard_normal(len(t))
+            save_clip(tone.astype(np.float32), str(root / name / f"c{i}.wav"))
+    negs = []
+    for _ in range(12):
+        spec = rng.uniform(0, 60, size=(int(rng.integers(45, 70)), 40))
+        spec[:, :12] += 250
+        negs.append(spec.astype(np.uint16))
+    RaggedSpectrogramStore.create(str(root / "spec_neg" / "training" / "x_mmap"), negs)
+    return root
+
+
+def _clips_feature(root, name, truth, seed):
+    return {"type": "clips", "truth": truth, "sampling_weight": 1.0, "penalty_weight": 1.0,
+            "truncation_strategy": "random", "pack_pool_size": 8,
+            "clips_settings": {"input_directory": str(root / name), "file_pattern": "*.wav",
+                               "seed": seed},
+            "augmentation_settings": {"augmentation_duration_s": 1.5, "seed": seed + 1,
+                                      "augmentation_probabilities": {"Gain": 1.0}},
+            "spectrogram_generation_settings": {"step_ms": 10}}
+
+
+@pytest.mark.parametrize("kind", ["raw_audio", "mixed", "raw_audio_refresh"])
+def test_cli_trains_on_audio(audio_root, tmp_path, kind):
+    """``raw_audio_training: true`` through the CLI on the CPU: clips-type
+    sets alone (the xla backend name), clips-type positives with mmap
+    negatives (the pallas name), and clips-type sets whose pools refresh
+    every 10 steps; each learns the separable task."""
+    negatives = (_clips_feature(audio_root, "neg", False, 5) if kind != "mixed" else
+                 {"type": "mmap", "features_dir": str(audio_root / "spec_neg"), "truth": False,
+                  "sampling_weight": 1.0, "penalty_weight": 0.5, "truncation_strategy": "random"})
+    config = {"train_dir": str(tmp_path / "run"), "clip_duration_ms": 390, "window_step_ms": 10,
+              "batch_size": 16, "raw_audio_training": True, "seed": 1,
+              "training_steps": [120 if kind == "raw_audio_refresh" else 80],
+              "learning_rates": [0.02], "eval_step_interval": 40,
+              "frontend_backend": "pallas" if kind == "mixed" else "xla",
+              "features": [_clips_feature(audio_root, "pos", True, 3), negatives]}
+    if kind == "raw_audio_refresh":
+        config["pool_refresh_steps"] = 10
+    with open(tmp_path / "cfg.yaml", "w") as f:
+        yaml.safe_dump(config, f)
+    out = CLI.main(["--training_config", str(tmp_path / "cfg.yaml"), "--device", "cpu"]
+                   + MODEL_FLAGS)
+    final = out["history"][-1]
+    assert np.isfinite(final["train"]["loss"])
+    assert final["train"]["accuracy"] > 0.9, final
+    if kind == "raw_audio_refresh":
+        assert final["pool_swaps"] >= 1
+    assert (tmp_path / "run" / "best_weights.pt").exists()

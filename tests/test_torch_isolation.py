@@ -29,10 +29,12 @@ before = set(sys.modules)
 import numpy as np
 import torch
 torch.set_num_threads(2)
-from microwakeword_tpu_torch import model_train_eval
+from microwakeword_tpu_torch import build_dataset, model_train_eval
+from microwakeword_tpu_torch.audio import augmentation, clips, dsp, io, spectrograms, vad
 from microwakeword_tpu_torch.config import derive_config
 from microwakeword_tpu_torch.data import sampler
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import MixedNetConfig, build_model, presets
@@ -77,7 +79,9 @@ def test_import_and_predict_load_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "microwakeword_tpu_torch" in added
-    assert "microwakeword_tpu_torch.train.loop" in added
+    for name in ("train.loop", "build_dataset", "data.refresh", "audio.io", "audio.vad", "audio.dsp",
+                 "audio.augmentation", "audio.clips", "audio.spectrograms"):
+        assert f"microwakeword_tpu_torch.{name}" in added, name
     assert [m for m in added if _forbidden(m)] == []
     assert "yaml" not in added  # only the CLI's main() reads YAML
 
@@ -85,6 +89,17 @@ def test_import_and_predict_load_no_jax():
 def _sources():
     yield from sorted((REPO / "microwakeword_tpu_torch").rglob("*.py"))
     yield REPO / "chip_smoke.py"
+
+
+def test_scan_covers_the_audio_path():
+    """The scan below reaches the modules that the JAX package backs with
+    its native library (``microwakeword_tpu.native``): the port keeps its own
+    NumPy and SciPy copies of them."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("audio/io.py", "audio/vad.py", "audio/dsp.py", "audio/augmentation.py",
+                 "audio/clips.py", "audio/spectrograms.py", "build_dataset.py", "data/refresh.py",
+                 "data/store.py", "data/sampler.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
 @pytest.mark.parametrize("path", list(_sources()), ids=lambda p: str(p.relative_to(REPO)))
@@ -135,3 +150,30 @@ def test_train_and_run_default_to_cuda(monkeypatch, tmp_path):
         ["--training_config", "unused.yaml", "--device", "cpu", "--train", "0", "mixednet"])
     with pytest.raises(ValueError, match="not trained"):  # the CPU gets past the device check
         CLI.run(flags, config)
+
+
+def test_audio_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The dataset build, the raw-audio pack and a clips-type set's
+    spectrogram pool raise without a card unless the CPU is asked for."""
+    from microwakeword_tpu_torch import build_dataset
+    from microwakeword_tpu_torch.audio.io import save_clip
+    from microwakeword_tpu_torch.data import sampler
+    from microwakeword_tpu_torch.data.store import ClipsFeatureSet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "wav").mkdir()
+    save_clip(np.zeros(8000, np.float32), str(tmp_path / "wav" / "a.wav"))
+    doc = {"output_dir": str(tmp_path / "out"), "clips": {"input_directory": str(tmp_path / "wav")},
+           "splits": {"testing": {"split": None}}}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_dataset.build_feature_dir(doc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_dataset.main(["--config", str(tmp_path / "unused.yaml")])
+    assert build_dataset.build_feature_dir(doc, "cpu", log=lambda *a: None) == {"testing": (1, 48)}
+    clips = ClipsFeatureSet({"input_directory": str(tmp_path / "wav")}, {}, {}, True, 1.0, 1.0,
+                            "random", pack_pool_size=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        clips.generate_pool()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sampler.pack_audio_data([clips])
+    assert sampler.pack_audio_data([clips], "cpu").chunks.shape[1] == 160

@@ -6,10 +6,13 @@ mode.  The file imports only the port, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from microwakeword_tpu_torch.data import sampler
 from microwakeword_tpu_torch.frontend import gate, kernel, plain
 
 
@@ -60,6 +63,32 @@ def test_frontend_kernel_matches_plain(cuda, step_ms, shape, kind):
         kernel.LAUNCHES_PER_CALL if got.shape[1] else 0)
     want = plain.frontend_batch(x, step_ms=step_ms)
     gate.assert_q6_gate(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_ms,batch,length", [(10, 128, 204), (20, 64, 102)])
+def test_frontend_kernel_in_the_train_step(cuda, step_ms, batch, length):
+    """The raw-audio train step's input: int16 hop chunks gathered from a
+    packed pool, rows outside the clip zeroed, (L + 2) * 160 samples at 10 ms
+    and (L + 1) * 320 at 20 ms, for L frames."""
+    rng = np.random.default_rng(7)
+    hop = 16 * step_ms
+    n_chunks = length + sampler.window_chunks_for_hop(hop) - 1
+    clips = [rng.integers(-20000, 20000, int(n)).astype(np.int16)
+             for n in rng.integers(hop * 20, hop * (n_chunks + 60), 40)]
+    provider = types.SimpleNamespace(
+        generate_audio_pool=lambda shard_index, shard_count: clips, sampling_weight=1.0,
+        penalty_weight=1.0, label=1.0, truncation_strategy="random")
+    data = sampler.pack_audio_data([provider], cuda, step_ms=step_ms)
+    pcm, _, _ = sampler.draw_audio_windows(data, torch.Generator(device=cuda).manual_seed(0),
+                                           batch, length)
+    assert pcm.shape == (batch, n_chunks * hop) and pcm.dtype == torch.int16
+    assert bool((pcm[:, :hop] == 0).all(dim=1).any())  # short clips: leading silence
+    before = kernel.frontend_batch.launches
+    got = sampler.audio_features(pcm, hop, length)
+    torch.cuda.synchronize()
+    assert kernel.frontend_batch.launches == before + kernel.LAUNCHES_PER_CALL
+    gate.assert_q6_gate(got.cpu().numpy(), plain.frontend_batch(pcm, step_ms).cpu().numpy())
 
 
 @pytest.mark.cuda
