@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving, training and raw-audio paths on one CUDA card and checks them.
+"""Drives the port's serving, training, raw-audio and export paths on one CUDA card and checks them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,7 +9,9 @@ printing its own lines; any failure exits non-zero:
 
 1. the card: its name, and its name and power limit as nvidia-smi gives them;
 2. build: compiles the frontend kernel from csrc/frontend.cu and prints the
-   seconds and the compiler's register/spill report;
+   seconds and the compiler's register/spill report; meanwhile, on a second
+   thread, g++ builds the C++ streaming runtime from native/src/mww_runtime.cc
+   (its seconds are printed too);
 3. the kernel against its plain version on the card, TF32 off, under the Q6
    gate (frontend/gate.py);
 4. the main path at the flagship MixedNet's full width (random weights from
@@ -60,13 +62,35 @@ printing its own lines; any failure exits non-zero:
    the training as phase 6 does and that the frontend kernel ran exactly 3
    launches per train step; holds one step's in-step features against the
    plain frontend on the same gathered windows (Q6 gate); times the step as
-   phase 6 does, with the frontend kernel's device time per step;
+   phase 6 does, with the frontend kernel's device time per step; run() gets
+   ``--export_native 0`` here and in phase 10, so that the launch checks
+   count the steps' launches alone (phase 13 checks the export);
 10. mixed training with pool refresh through ``run()``: clips-type
    positives and phase 6's mmap negatives, the pool refreshed every 50 steps
    (blocking); checks the launches, the swaps and the training; times the
    mixed step, and the step while a PoolRefresher builds, then checks that
    a swap changes the pool tensor in place at the same shape;
-11. a JSON line of the kernels, then the last line
+11. Inception serving at full width (``default_inception_config``, random
+   weights from the seed moved through models/convert.py): the same 64
+   streams of 10 s PCM -> the frontend kernel at 20 ms hops (launch count set
+   to 0 before and read after: exactly 3) -> stream_scan over 499 steps ->
+   moving average -> cooldown accept counts; streamed probabilities held
+   against the non-streaming forward; the path timed with CUDA events and
+   the scan's first SERVING_PROFILED_STEPS steps profiled;
+12. Inception training at full width through ``run()`` on phase 6's store
+   and recipe (dropout 0.2, 20 ms hops: 102 input frames), with test splits
+   cut to INCEPTION_TEST (streamed evaluation runs one step per frame);
+   checks as phase 6 (the loss falls, accuracies, artifacts, selection), then
+   the step's ms by CUDA events, kernels per step under the profiler and 10
+   steps under ``set_sync_debug_mode("error")`` (the dropout draw too);
+13. export and the C++ runtime, for phase 6's flagship and phase 12's
+   Inception, whose ``run()`` wrote native/model.mww and model_quant.mww
+   (``--export_native`` defaults to 1): both files exist; the float file in
+   the runtime matches the port's stream_scan on the card (TF32 off) on the
+   test ambient tracks to rtol 2e-4 / atol 2e-5, and the int8 file the float
+   one to 0.08; the streamed ROC AUC of the float and int8 files through the
+   runtime beside the port's; the runtime's host CPU ms per audio-second;
+14. a JSON line of the kernels, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -80,6 +104,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -103,6 +128,7 @@ from microwakeword_tpu_torch.frontend.ab import cuda_ms, queued_ms
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
 from microwakeword_tpu_torch.models.mixednet import stream_phase
+from microwakeword_tpu_torch.native import StreamingRuntime
 from microwakeword_tpu_torch.train import loop as training
 from microwakeword_tpu_torch.train import metrics as M
 
@@ -169,6 +195,18 @@ BACKGROUND_SNR_DB = (0.0, 10.0)  # the JAX package's default is (-10, 10)
 BUILD_BATCH = 32  # clips per frontend call in build_dataset (batched_spectrograms)
 RAW_STEPS = [400, 200]  # phase 9: twice phase 6's schedule
 MIXED_STEPS, REFRESH_STEPS = [100], 50  # phase 10: two blocking swaps
+INCEPTION_STEP_MS = 20  # the Inception family's default hop (models/presets.py)
+# Phase 11 profiles this many streaming steps: the profiler's own processing of
+# the whole scan's 110,000 kernels and their host events takes about a minute.
+SERVING_PROFILED_STEPS = 50
+# Phase 12's test splits, cut from phase 6's (the streamed evaluation runs one
+# Inception step per frame): (clips, least frames, most frames) per split.
+INCEPTION_TEST = {"pos": {"testing": (10, 150, 250)},
+                  "neg": {"testing": (10, 100, 500), "testing_ambient": (1, 1500, 1500)}}
+# Phase 13: the C++ runtime against the port's stream_scan
+# (tests/test_native_runtime.py's tolerance).
+RUNTIME_RTOL, RUNTIME_ATOL = 2e-4, 2e-5
+INT8_ENVELOPE = 0.08  # the int8 file against the float one (tests/test_native_quant.py)
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -208,12 +246,13 @@ def host_profile(fn, calls: int):
     return [(e.key[:40], e.self_cpu_time_total / 1e3 / calls, e.count / calls) for e in ops]
 
 
-def write_store(root: str, rng: np.random.Generator) -> int:
-    """The phase 6 store (STORE) under ``root``; returns the training frames.
-    Positives carry energy in the high channels, negatives in the low ones
-    (tests/test_train.py's pattern); validation_ambient has AMBIENT_BURSTS."""
+def write_store(root: str, rng: np.random.Generator, store: dict | None = None) -> int:
+    """The phase 6 store (``store``, by default STORE) under ``root``; returns
+    the training frames.  Positives carry energy in the high channels,
+    negatives in the low ones (tests/test_train.py's pattern);
+    validation_ambient has AMBIENT_BURSTS."""
     training_frames = 0
-    for name, splits in STORE.items():
+    for name, splits in (store or STORE).items():
         for split, (count, lo, hi) in splits.items():
             lengths = rng.integers(lo, hi + 1, count)
             data = rng.integers(0, 80, (int(lengths.sum()), 40), dtype=np.uint16)
@@ -308,7 +347,7 @@ def phase_training(dev: torch.device, smi: str, seed: int, root: str):
     val_acc = history[-1]["validation"]["accuracy"]
     check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
     check(math.isfinite(auc), f"streamed AUC {auc}")
-    check_selection(bundle, config, handler, out, dev)
+    check_selection(bundle, config, handler, out, dev, "phase 6")
     state = {k: v.cpu() for k, v in training.load_weights(
         bundle, os.path.join(run_dir, "best_weights.pt"), dev).state_dict().items()}
 
@@ -327,7 +366,7 @@ def phase_training(dev: torch.device, smi: str, seed: int, root: str):
                   f"{op} {ms:.4f} ms x{n:.0f}" for op, ms, n in host_top))
     print(f"phase 6 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
           f"raised nothing", flush=True)
-    return bundle, packed, phase
+    return bundle, packed, phase, config, out
 
 
 def measure_step(train_step, phase: dict) -> dict:
@@ -374,8 +413,9 @@ def print_profile(label: str, m: dict) -> None:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
 
 
-def check_selection(bundle, config: dict, handler, out: dict, dev: torch.device) -> None:
-    """Phase 6's checkpoint selection and what run() scored with it:
+def check_selection(bundle, config: dict, handler, out: dict, dev: torch.device,
+                    label: str) -> None:
+    """A run's checkpoint selection and what run() scored with it:
     best_weights.pt holds the eval that the two-step rule picks from the
     evals' records, which do not all tie; run()'s non-streaming test accuracy
     is that of these weights, which rank the test clips (AUC); and the
@@ -426,7 +466,7 @@ def check_selection(bundle, config: dict, handler, out: dict, dev: torch.device)
     frr = out["streaming_roc"]["frr_at_cutoffs"]
     frr_err = float(np.abs(frr - frr_ref).max())
     mid = int(np.searchsorted(roc.DEFAULT_CUTOFFS, np.median(peaks))) - 1  # below the median peak
-    print(f"phase 6 selection: step {chosen} of {[r['step'] for r in out['history']]} (faph "
+    print(f"{label} selection: step {chosen} of {[r['step'] for r in out['history']]} (faph "
           f"{best_min:.3f}, avr {best_max:.4f}); its test accuracy {test_acc:.4f}, test AUC "
           f"{test_auc:.5f}; streamed FRR at cutoff {roc.DEFAULT_CUTOFFS[mid]:.2f} {frr[mid]:.4f} "
           f"(a batched scan: {frr_ref[mid]:.4f}), at 0.50 {frr[50]:.4f}; max|d| over the "
@@ -744,7 +784,8 @@ def phase_raw_audio(dev: torch.device, smi: str, seed: int, root: str, built: di
                 mmap_feature(os.path.join(stores, "pos"), True, 2.0, "truncate_start"),
                 mmap_feature(os.path.join(stores, "neg"), False, 10.0, "random")]
     flags, config, out, wall, peak, launches = audio_run(
-        dev, root, seed, "raw_audio", RAW_STEPS, features, ["--test_tf_nonstreaming", "1"])
+        dev, root, seed, "raw_audio", RAW_STEPS, features,
+        ["--test_tf_nonstreaming", "1", "--export_native", "0"])
     steps = sum(RAW_STEPS)
     history, length, batch = out["history"], config["spectrogram_length"], config["batch_size"]
     check(launches == kernel.LAUNCHES_PER_CALL * steps,
@@ -823,7 +864,7 @@ def phase_mixed(dev: torch.device, smi: str, seed: int, root: str, built: dict,
                 mmap_feature(os.path.join(spectrogram_root, "neg"), False, 10.0, "random"),
                 mmap_feature(os.path.join(built["stores"], "pos"), True, 2.0, "truncate_start")]
     flags, config, out, wall, peak, launches = audio_run(
-        dev, root, seed, "mixed", MIXED_STEPS, features, ["--test_streaming", "0"],
+        dev, root, seed, "mixed", MIXED_STEPS, features, ["--test_streaming", "0", "--export_native", "0"],
         eval_step_interval=REFRESH_STEPS, pool_refresh_steps=REFRESH_STEPS,
         pool_refresh_blocking=True)
     steps, history = sum(MIXED_STEPS), out["history"]
@@ -883,6 +924,235 @@ def phase_mixed(dev: torch.device, smi: str, seed: int, root: str, built: dict,
           f"the build and the copy); pool tensor {tuple(before.shape)} int16 kept in place, "
           f"{changed:.4f} of its samples changed", flush=True)
     return dict(m, launches=launches, steps=steps, refreshing_ms=refreshing_ms)
+
+
+def inception_state(seed: int) -> tuple:
+    """The default Inception bundle and a random state, through the flax
+    layout: Glorot kernels from a torch.Generator, BN statistics from numpy
+    (variances near 1: small ones compound over Inception's depth)."""
+    bundle = build_model("inception", presets.default_inception_config())
+    module = bundle.init(torch.Generator().manual_seed(seed), device="cpu")
+    variables = convert.state_to_flax({k: v.numpy() for k, v in module.state_dict().items()})
+    rng = np.random.default_rng(seed)
+
+    def randomize(tree: dict) -> None:
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                randomize(value)
+            elif key == "mean":
+                tree[key] = rng.normal(0.0, 0.2, value.shape).astype(np.float32)
+            elif key == "var":
+                tree[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
+
+    randomize(variables["batch_stats"])
+    return bundle, convert.flax_to_state(variables)
+
+
+def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.Tensor) -> dict:
+    """Phase 11: Inception serving at full width: ``pcm`` -> the frontend
+    kernel at 20 ms hops -> stream_scan at stride 1 -> accept counts; the
+    launch count is set to 0 before the path and read after it (exactly 3);
+    the streamed probabilities against the non-streaming forward; the whole
+    path and its parts timed with CUDA events, and the scan's first
+    SERVING_PROFILED_STEPS steps profiled."""
+    bundle, state = inception_state(seed)
+    model = Model.from_torch(bundle, state, device=dev)
+    step_s = INCEPTION_STEP_MS / 1000
+
+    def accepts(probs):
+        return streaming_eval.ambient_accept_counts(
+            [probs[..., 0]], roc.DEFAULT_CUTOFFS, IGNORE_SLICES_AFTER_ACCEPT, SLIDING_WINDOW,
+            stride=bundle.stride, step_s=step_s)
+
+    kernel.frontend_batch.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        feats = kernel.frontend_batch(pcm, step_ms=INCEPTION_STEP_MS)
+        probs = bundle.stream_scan(model.module, feats)
+        counts, hours = accepts(probs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.frontend_batch.launches
+    check(launches == kernel.LAUNCHES_PER_CALL,
+          f"Inception serving launched the frontend kernel {launches} times")
+    frames = FC.num_frames(pcm.shape[1], FC.hop_samples(INCEPTION_STEP_MS))
+    check(feats.shape == (pcm.shape[0], frames, FC.NUM_CHANNELS), f"features {tuple(feats.shape)}")
+    check(probs.shape == (pcm.shape[0], frames, 1), f"probs {tuple(probs.shape)}")
+    p = probs.float()
+    check(bool(torch.isfinite(p).all()) and bool(((p >= 0) & (p <= 1)).all()), "probabilities")
+    t_in = bundle.spectrogram_length
+    worst = 0.0
+    with torch.inference_mode():
+        for end in (frames, frames - 1, frames - 2):  # stride 1: the step ending at frame e
+            full = bundle.forward(model.module, feats[:, end - t_in : end])
+            worst = max(worst, float((full - probs[:, end - 1]).abs().max()))
+    check(worst <= STREAM_ATOL, f"Inception streamed vs forward max|d| {worst} > {STREAM_ATOL}")
+    check(counts.shape == (len(roc.DEFAULT_CUTOFFS),) and hours > 0, "accept counts")
+
+    def whole_path():
+        f = kernel.frontend_batch(pcm, step_ms=INCEPTION_STEP_MS)
+        accepts(bundle.stream_scan(model.module, f))
+
+    with torch.inference_mode():
+        frontend_ms = cuda_ms(lambda: kernel.frontend_batch(pcm, step_ms=INCEPTION_STEP_MS), 20)
+        scan_ms = cuda_ms(lambda: bundle.stream_scan(model.module, feats), 1)
+        accept_ms = cuda_ms(lambda: accepts(probs), 3)
+        path_ms = cuda_ms(whole_path, 1)
+        prof_wall, prof_device, top, prof_kernels, _ = device_profile(
+            lambda: bundle.stream_scan(model.module, feats[:, :SERVING_PROFILED_STEPS]))
+    audio_s = pcm.shape[0] * pcm.shape[1] / FC.SAMPLE_RATE
+    n_params = sum(w.numel() for w in model.module.parameters())
+    print(f"phase 11 Inception serving: {pcm.shape[0]} streams x {pcm.shape[1] / FC.SAMPLE_RATE:.0f} "
+          f"s at {INCEPTION_STEP_MS} ms hops, {frames} steps of 1 frame, {n_params:,} "
+          f"parameters; wall {wall:.3f} s; frontend launches "
+          f"{launches}; probs in [{float(p.min()):.4f}, {float(p.max()):.4f}]; streamed vs forward "
+          f"max|d|={worst:.3e}; accepts at 0.5/0.8/0.9: {counts[50]:.0f}/{counts[80]:.0f}/"
+          f"{counts[90]:.0f} over {hours * 3600:.1f} s ({smi})")
+    print(f"phase 11 path: frontend {frontend_ms:.3f} ms + stream_scan {scan_ms:.3f} ms + accept "
+          f"counts {accept_ms:.3f} ms; whole path {path_ms:.3f} ms for {audio_s:.0f} audio-s "
+          f"(CUDA events; {path_ms / frames:.4f} ms per step); profile of the scan's first "
+          f"{SERVING_PROFILED_STEPS} steps: wall {prof_wall:.3f} ms, device kernels "
+          f"{prof_device:.3f} ms, busy share {prof_device / prof_wall:.4f}, "
+          f"{prof_kernels / SERVING_PROFILED_STEPS:.1f} kernels per step ({smi})", flush=True)
+    for key, ms, count in top:
+        print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
+    return dict(launches=launches, path_ms=path_ms, scan_ms=scan_ms, frontend_ms=frontend_ms,
+                max_abs=worst)
+
+
+def phase_inception_training(dev: torch.device, smi: str, seed: int, root: str,
+                             spectrograms: str) -> dict:
+    """Phase 12: Inception at full width through run() on phase 6's store and
+    recipe at 20 ms hops (102 input frames); the training and validation
+    splits are phase 6's (linked), the test splits are INCEPTION_TEST.  Checks
+    the training as phase 6 does (loss, accuracies, artifacts, selection),
+    then times the trained model's step (measure_step: the dropout draw runs
+    under the sync check).  Returns {"bundle", "config", "out", "m"}."""
+    inc_root = os.path.join(root, "inception")
+    for name in STORE:
+        os.makedirs(os.path.join(inc_root, name))
+        for split in ("training", "validation", "validation_ambient"):
+            if os.path.isdir(os.path.join(spectrograms, name, split)):
+                os.symlink(os.path.join(spectrograms, name, split),
+                           os.path.join(inc_root, name, split))
+    write_store(inc_root, np.random.default_rng(seed + 50), INCEPTION_TEST)
+    flags = CLI.build_parser().parse_args(
+        ["--training_config", os.path.join(root, "unused.yaml"), "--test_tf_nonstreaming", "1",
+         "--test_native_quantized", "1", "--device", dev.type, "inception"])
+    config = derive_config(dict(recipe(inc_root, seed), window_step_ms=INCEPTION_STEP_MS),
+                           CLI.model_config_from_flags(flags))
+    length, batch = config["spectrogram_length"], config["batch_size"]
+    check(length == 102, f"Inception input frames {length}")
+    bundle = build_model("inception", config["model_config"])
+    check(bundle.config.dropout == 0.2, f"dropout {bundle.config.dropout}")
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = CLI.run(flags, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    history, run_dir = out["history"], config["train_dir"]
+    handler = FeatureHandler(config)
+    packed = handler.pack_training(dev)
+    init = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+    loss0 = float(training.make_train_step(
+        bundle, init, packed, batch, length,
+        generator=torch.Generator(device=dev).manual_seed(seed)).step(**phase)["loss"])
+    del init
+    for name in ("best_weights.pt", "metrics.jsonl", os.path.join("streaming", "streaming_roc.txt"),
+                 os.path.join("native", "model.mww"), os.path.join("native", "model_quant.mww"),
+                 os.path.join("native", "quantized_streaming_roc.txt")):
+        check(os.path.exists(os.path.join(run_dir, name)), f"{name} was not written")
+    print(f"phase 12 run(): Inception, {sum(p['steps'] for p in training.resolve_schedules(config))} "
+          f"steps of batch {batch} x {length} frames, wall {wall:.2f} s with evals, the streamed "
+          f"ROC, the export and the int8 file's ROC; peak memory {peak / 2**20:.1f} MiB ({smi})")
+    print_history("phase 12", history)
+    last, auc = history[-1]["train"], out["streaming_roc"]["auc"]
+    val_acc = history[-1]["validation"]["accuracy"]
+    print(f"phase 12 streamed test ROC AUC {auc:.5f}; int8 .mww through the runtime "
+          f"{out['native_quantized_roc']['auc']:.5f}; test accuracy "
+          f"{out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
+    check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
+    check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
+    check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
+    check(math.isfinite(auc), f"streamed AUC {auc}")
+    check_selection(bundle, config, handler, out, dev, "phase 12")
+
+    model = training.load_weights(bundle, os.path.join(run_dir, "best_weights.pt"), dev)
+    train_step = training.make_train_step(
+        bundle, model, packed, batch, length,
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    m = measure_step(train_step, phase)
+    print(f"phase 12 step (Inception, batch {batch}, SpecAugment and dropout on, TF32 off): "
+          f"{m['step_ms']:.4f} ms per step by CUDA events over {TIMED_STEPS} steps "
+          f"({1e3 / m['step_ms']:.1f} steps/s; host clock {m['host_ms']:.4f} ms) ({smi})")
+    print_profile("phase 12", m)
+    print(f"phase 12 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
+          f"raised nothing", flush=True)
+    return dict(bundle=bundle, config=config, out=out, m=m)
+
+
+def phase_export(dev: torch.device, smi: str, runs: list) -> dict:
+    """Phase 13: for each (label, bundle, config, run() result) the two
+    ``.mww`` files run() wrote exist; the float file in the C++ runtime
+    matches the port's stream_scan on the card (TF32 off) on the test ambient
+    tracks to RUNTIME_RTOL / RUNTIME_ATOL, and the int8 file the float one to
+    INT8_ENVELOPE; the streamed ROC AUC of the float and int8 files through
+    the runtime beside the port's; the runtime's host CPU ms per
+    audio-second.  Returns {label: numbers}."""
+    results = {}
+    for label, bundle, config, out in runs:
+        paths = out["native"]
+        check(paths is not None and paths["int8"] is not None, f"{label}: run() exported {paths}")
+        check(all(os.path.exists(p) for p in paths.values()), f"{label}: .mww files {paths}")
+        handler = FeatureHandler(config, dev)
+        model = training.load_weights(bundle, os.path.join(config["train_dir"], "best_weights.pt"),
+                                      dev)
+        tracks, _, _ = handler.get_data("testing_ambient", config["batch_size"],
+                                        config["spectrogram_length"], "none")
+        runtime, runtime_int8 = StreamingRuntime(paths["float"]), StreamingRuntime(paths["int8"])
+        t = min(len(track) for track in tracks) // bundle.stride * bundle.stride
+        x = np.stack([track[:t] for track in tracks]).astype(np.float32)  # one batched scan
+        want = bundle.stream_scan(model, torch.from_numpy(x).to(dev))[..., 0].cpu().numpy()
+        worst, worst_int8, host_s = 0.0, 0.0, 0.0
+        for track, scanned in zip(x, want):
+            runtime.reset()
+            t0 = time.perf_counter()
+            got = runtime.predict_spectrogram(track)
+            host_s += time.perf_counter() - t0
+            check(got.shape == scanned.shape, f"{label}: runtime {got.shape} vs scan {scanned.shape}")
+            d = np.abs(got.astype(np.float64) - scanned)
+            worst = max(worst, float(d.max()))
+            check(bool(np.allclose(got, scanned, rtol=RUNTIME_RTOL, atol=RUNTIME_ATOL)),
+                  f"{label}: runtime vs stream_scan max|d| {float(d.max())}")
+            runtime_int8.reset()
+            worst_int8 = max(worst_int8, float(np.abs(runtime_int8.predict_spectrogram(track)
+                                                      - got).max()))
+        frames = x.shape[0] * t
+        check(worst_int8 < INT8_ENVELOPE, f"{label}: int8 vs float file max|d| {worst_int8}")
+        audio_s = frames * config["window_step_ms"] / 1000
+        native_dir = os.path.dirname(paths["float"])
+        rocs = {kind: CLI.native_streaming_roc(bundle, model, handler, config, path, native_dir,
+                                               f"{kind}_runtime_streaming_roc.txt")["auc"]
+                for kind, path in (("float", paths["float"]), ("int8", paths["int8"]))}
+        if out.get("native_quantized_roc") is not None:
+            check(rocs["int8"] == out["native_quantized_roc"]["auc"],
+                  f"{label}: int8 ROC {rocs['int8']} vs run()'s {out['native_quantized_roc']['auc']}")
+        sizes = {kind: os.path.getsize(path) for kind, path in paths.items()}
+        print(f"phase 13 {label}: float .mww {sizes['float']:,} B, int8 {sizes['int8']:,} B; runtime "
+              f"vs stream_scan on the card over {len(tracks)} test ambient tracks ({frames} frames): "
+              f"max|d| {worst:.3e} (rtol {RUNTIME_RTOL}, atol {RUNTIME_ATOL}); int8 vs float file "
+              f"in the runtime max|d| {worst_int8:.4f}; streamed ROC AUC: "
+              f"port {out['streaming_roc']['auc']:.5f}, float .mww {rocs['float']:.5f}, int8 .mww "
+              f"{rocs['int8']:.5f}; runtime host CPU time {host_s * 1e3 / audio_s:.4f} ms per "
+              f"audio-second ({audio_s:.0f} audio-s; host clock, not the card) ({smi})", flush=True)
+        results[label] = dict(max_abs=worst, int8_max_abs=worst_int8,
+                              auc_port=out["streaming_roc"]["auc"],
+                              auc_float=rocs["float"], auc_int8=rocs["int8"],
+                              host_ms_per_audio_s=host_s * 1e3 / audio_s, **sizes)
+    return results
 
 
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
@@ -963,6 +1233,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(phase: int) -> None:
+        print(f"chip_smoke: phase {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -973,7 +1247,19 @@ def main() -> int:
     print(f"phase 1 card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
 
-    # 2. build the kernel
+    # 2. build the kernel; the C++ runtime on a second thread meanwhile
+    runtime_build = {}
+
+    def build_runtime():
+        t = time.perf_counter()
+        try:
+            runtime_build["path"] = _build.build_runtime()[0]
+        except Exception as e:  # noqa: BLE001 - reported after the join
+            runtime_build["error"] = e
+        runtime_build["s"] = time.perf_counter() - t
+
+    gxx = threading.Thread(target=build_runtime)
+    gxx.start()
     t0 = time.perf_counter()
     path, report = _build.build("frontend")
     print(f"phase 2 build csrc/frontend.cu: {path.name}")
@@ -981,6 +1267,10 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             print(f"  {ln.strip()}")
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s", flush=True)
+    gxx.join()
+    check("error" not in runtime_build, f"g++ build of the runtime: {runtime_build.get('error')}")
+    print(f"phase 2 g++ build of native/src/mww_runtime.cc: {runtime_build['path'].name} in "
+          f"{runtime_build['s']:.2f} s (host)", flush=True)
 
     # 3. kernel against plain on the card
     rng = np.random.default_rng(args.seed)
@@ -1133,16 +1423,30 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as work:
         # 6. training at full width; 7. the step on the card against the CPU
+        mark(6)
         spectrograms = os.path.join(work, "spectrograms")
-        bundle, packed, phase = phase_training(dev, smi, args.seed, spectrograms)
+        bundle, packed, phase, flagship_config, flagship_out = phase_training(
+            dev, smi, args.seed, spectrograms)
         phase_parity(bundle, packed, phase, dev, smi, args.seed)
         del packed
         # 8. the dataset build; 9. raw-audio training; 10. mixed training and pool refresh
+        mark(8)
         built = phase_dataset(dev, smi, args.seed, work)
+        mark(9)
         raw = phase_raw_audio(dev, smi, args.seed, work, built)
+        mark(10)
         mixed = phase_mixed(dev, smi, args.seed, work, built, spectrograms)
+        # 11. Inception serving; 12. Inception training; 13. export and the runtime
+        mark(11)
+        inception_serving = phase_inception_serving(dev, smi, args.seed, pcm)
+        mark(12)
+        inception = phase_inception_training(dev, smi, args.seed, work, spectrograms)
+        mark(13)
+        exported = phase_export(dev, smi, [
+            ("flagship", bundle, flagship_config, flagship_out),
+            ("inception", inception["bundle"], inception["config"], inception["out"])])
 
-    # 11. the kernels line, then the last line
+    # 14. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
@@ -1158,7 +1462,14 @@ def main() -> int:
         launches_per_raw_audio_step=raw["launches"] / raw["steps"],
         ms_device_per_raw_audio_step=raw["frontend_ms"], raw_audio_step_ms=raw["step_ms"],
         launches_mixed_run=mixed["launches"], mixed_step_ms=mixed["step_ms"],
+        launches_inception_serving=inception_serving["launches"],
+        ms_serving_20ms=times["serving 20ms"]["kernel"],
+        bound_ms_serving_20ms=times["serving 20ms"]["bound"],
+        inception_serving_path_ms=inception_serving["path_ms"],
+        inception_step_ms=inception["m"]["step_ms"],
+        runtime_host_ms_per_audio_s={k: v["host_ms_per_audio_s"] for k, v in exported.items()},
     )]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,19 @@
 It runs the wake-word system on an NVIDIA H100:
 
 - serving: 16 kHz PCM -> micro-frontend features (a hand-written CUDA
-  kernel, ``frontend.kernel``) -> the streaming MixedNet with ring-buffer
+  kernel, ``frontend.kernel``) -> the streaming model with ring-buffer
   state (``models``) -> wake probabilities every ``stride`` frames -> moving
   average and cooldown accept counting (``evaluate``);
 - training on precomputed spectrograms: the ragged store (``data``) ->
   the corpus on the card and its on-device batch draw (``data.sampler``) ->
   train-mode forward and backward, weighted BCE and flat Adam, validation
   and two-step checkpoint selection (``train``) -> the streamed test ROC,
-  driven by the ``model_train_eval`` CLI.
+  driven by the ``model_train_eval`` CLI; on raw audio, the frontend
+  kernel runs inside the step (``audio``, ``data.sampler``);
+- both model families, MixedNet and Inception (``models``);
+- the deployment artifact: ``.mww`` float and full-int8 files (``export``)
+  for the C++ streaming runtime, which ``native`` builds from the repo's
+  source and binds (``inference.Model.from_native``).
 
 The JAX package ``microwakeword_tpu`` is the reference the port is held
 against; this package imports nothing of it (nor of jax/flax/optax) and keeps

@@ -1,10 +1,13 @@
-"""Builds the port's CUDA sources at first use and loads them with ctypes.
+"""Builds the port's native sources at first use and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface under ``_build/`` (listed in ``.gitignore``), named by a hash
 of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  Nothing is built when a module is imported: the
-wrappers call ``load`` inside the function that launches the kernel.
+one is loaded as it is.  The C++ streaming runtime, the repo's standalone
+``native/src/mww_runtime.cc``, is compiled the same way by ``g++``
+(``build_runtime``).  Nothing is built when a module is imported: the
+wrappers call ``load`` or ``load_runtime`` inside the function that needs
+the library.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -20,6 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+RUNTIME_SRC = _PKG.parent / "native" / "src" / "mww_runtime.cc"
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 # --fmad=false: expressions round operation by operation, like PyTorch's
 # eager ops; the kernels call fmaf where they want a fused multiply-add.
@@ -46,38 +52,63 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compiles ``csrc/<name>.cu`` unless its library exists.
-
-    Returns (library path, the compiler's report; empty if nothing was built).
-    The library is written to a temporary name and renamed into place, so
+def _compile(command: list[str], src: Path, out: Path) -> str:
+    """Runs ``command + ["-o", tmp, src]`` and renames ``tmp`` to ``out``, so
     processes building at the same time never load a half-written file.
-    """
-    out = library_path(name)
-    if out.exists():
-        return out, ""
+    Returns the compiler's report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True,
-            text=True,
-        )
+        proc = subprocess.run([*command, "-o", tmp, str(src)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu:\n{proc.stdout}\n{proc.stderr}"
-            )
+            raise RuntimeError(f"{command[0]} failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compiles ``csrc/<name>.cu`` unless its library exists.
+
+    Returns (library path, the compiler's report; empty if nothing was built).
+    """
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    return out, _compile([nvcc_path(), *NVCC_FLAGS], CSRC / f"{name}.cu", out)
+
+
+def runtime_library_path() -> Path:
+    digest = hashlib.sha256(RUNTIME_SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"libmww_runtime_{digest.hexdigest()[:16]}.so"
+
+
+def build_runtime() -> tuple[Path, str]:
+    """Compiles the C++ streaming runtime (``native/src/mww_runtime.cc``,
+    C interface, standard headers only) with ``g++`` unless its library
+    exists; returns (library path, the compiler's report).  There is no
+    fallback: without ``g++`` or the source this raises."""
+    out = runtime_library_path()
+    if out.exists():
+        return out, ""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the C++ streaming runtime is built from source")
+    return out, _compile([gxx, *GXX_FLAGS], RUNTIME_SRC, out)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Builds (if needed) and loads ``csrc/<name>.cu``'s library."""
     path, _ = build(name)
+    return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def load_runtime() -> ctypes.CDLL:
+    """Builds (if needed) and loads the C++ streaming runtime."""
+    path, _ = build_runtime()
     return ctypes.CDLL(str(path))

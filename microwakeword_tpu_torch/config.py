@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from microwakeword_tpu_torch.models import mixednet as MX
+from microwakeword_tpu_torch.models.registry import FAMILIES
 from microwakeword_tpu_torch.models.presets import derive_lengths
 
 
@@ -36,9 +36,10 @@ def derive_config(config: dict, model_config, stride: int | None = None) -> dict
         stride = getattr(model_config, "stride", 1)
     config["stride"] = stride
 
-    if not isinstance(model_config, MX.MixedNetConfig):
+    slices_dropped = [f for cls, _, f in FAMILIES.values() if isinstance(model_config, cls)]
+    if not slices_dropped:
         raise TypeError(f"unknown model config {type(model_config)}")
-    dropped = MX.spectrogram_slices_dropped(model_config)
+    dropped = slices_dropped[0](model_config)
 
     final, total = derive_lengths(
         int(config["clip_duration_ms"]), int(config["window_step_ms"]), stride, dropped

@@ -4,7 +4,7 @@ The streamed ambient ROC (``streaming_model_roc``) and the test-set accuracy
 (``model_accuracy``) over the data store's evaluation sets, one streaming
 scan per track.  One process and one device: the JAX package's mesh path,
 its per-process track sharding and its count all-gather have no counterpart
-yet (ROADMAP queue item 7).
+yet (ROADMAP queue item 10).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Streaming wake-word inference on raw audio (port of inference.py:25-92).
 
-The PyTorch backend: features from the port's ``frontend_batch`` (the CUDA
-kernel on the card) and the streaming model's ring-buffer scan, both on the
-model's device.  The TFLite, native and StableHLO loaders wait for the
-export slice.
+Two backends behind one ``Model``: the PyTorch one (``from_torch``: the
+streaming model's ring-buffer scan on the model's device), and the C++
+streaming runtime on an exported ``.mww`` file (``from_native``: the
+deployment artifact, on the host CPU).  Features come from the port's
+``frontend_batch`` on the model's device (the CUDA kernel on the card) for
+both.  The TFLite and StableHLO loaders wait for their slices.
 """
 
 from __future__ import annotations
@@ -19,32 +21,50 @@ class Model:
     """Wake-word model for clip and spectrogram prediction.
 
     Usage: ``Model.from_torch(bundle, state)`` with ``state`` a state dict
-    (for example ``models.convert.flax_to_state(variables)``).
+    (for example ``models.convert.flax_to_state(variables)``), or
+    ``Model.from_native("model.mww")``.
     """
 
-    def __init__(self, bundle, module: torch.nn.Module, device: torch.device):
+    def __init__(self, predict_spectrogram_fn, stride: int, device: torch.device,
+                 bundle=None, module: torch.nn.Module | None = None):
+        self._predict = predict_spectrogram_fn
+        self.stride = stride
+        self.device = device
         self.bundle = bundle
         self.module = module
-        self.device = device
-        self.stride = bundle.stride
 
     @classmethod
     def from_torch(cls, bundle, state: dict, device=None) -> "Model":
         dev = resolve_device(device)
-        return cls(bundle, bundle.load(state, dev), dev)
+        module = bundle.load(state, dev)
 
-    def _scan(self, spec: torch.Tensor) -> np.ndarray:
-        t = (spec.shape[0] // self.stride) * self.stride
-        if t <= 0:
-            return np.zeros((0,), np.float32)
-        probs = self.bundle.stream_scan(self.module, spec[None, :t])
-        return probs.reshape(-1).cpu().numpy()
+        def predict(spec: torch.Tensor) -> np.ndarray:
+            t = (spec.shape[0] // bundle.stride) * bundle.stride
+            if t <= 0:
+                return np.zeros((0,), np.float32)
+            return bundle.stream_scan(module, spec[None, :t].to(dev)).reshape(-1).cpu().numpy()
+
+        return cls(predict, bundle.stride, dev, bundle, module)
+
+    @classmethod
+    def from_native(cls, path: str, step_ms: int = 10, device=None) -> "Model":
+        """An exported ``.mww`` model in the C++ streaming runtime; ``device``
+        runs the frontend of ``predict_clip``."""
+        from microwakeword_tpu_torch.native import StreamingRuntime
+
+        dev = resolve_device(device)
+        runner = StreamingRuntime(path, step_ms=step_ms)
+
+        def predict(spec: torch.Tensor) -> np.ndarray:
+            runner.reset()
+            return runner.predict_spectrogram(spec.cpu().numpy())
+
+        return cls(predict, runner.stride, dev)
 
     @torch.inference_mode()
     def predict_spectrogram(self, spectrogram) -> np.ndarray:
         """[T, 40] features -> [T // stride] wake probabilities."""
-        spec = torch.from_numpy(np.array(spectrogram, dtype=np.float32))
-        return self._scan(spec.to(self.device))
+        return self._predict(torch.from_numpy(np.array(spectrogram, dtype=np.float32)))
 
     @torch.inference_mode()
     def predict_clip(self, audio, step_ms: int = 10) -> np.ndarray:
@@ -53,4 +73,4 @@ class Model:
         if audio.dtype.kind == "f":
             audio = audio.astype(np.float32)
         pcm = torch.from_numpy(audio).to(self.device).reshape(1, -1)
-        return self._scan(frontend_batch(pcm, step_ms=step_ms)[0])
+        return self._predict(frontend_batch(pcm, step_ms=step_ms)[0])

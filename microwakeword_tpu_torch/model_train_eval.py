@@ -8,9 +8,12 @@ model_train_eval.py).
 The flags are the JAX CLI's, with the reference's per-model subparsers and
 string-list flags, plus ``--device`` (default ``cuda``; ``--device cpu``
 runs on the CPU).  ``main`` parses the flags and the YAML and writes
-``training_config.yaml``; ``run`` does the rest and needs no PyYAML.  Exports
-and the runners that read them are not ported yet: their flags default to 0
-here and raise if set (ROADMAP queue item 6).
+``training_config.yaml``; ``run`` does the rest and needs no PyYAML.  As in
+the JAX CLI, ``--export_native`` (default 1) writes ``native/model.mww`` and
+the full-int8 ``native/model_quant.mww`` for the C++ streaming runtime, and
+``--test_native_quantized`` scores the int8 file's streamed ROC through it.
+The StableHLO and TFLite exports are not ported: their flags default to 0
+here and raise if set (ROADMAP queue items 7 and 9).
 """
 
 from __future__ import annotations
@@ -21,11 +24,15 @@ import os
 
 from microwakeword_tpu_torch.device import resolve_device
 
-_EXPORT_FLAGS = (
-    "test_tflite_nonstreaming", "test_tflite_nonstreaming_quantized", "test_tflite_streaming",
-    "test_tflite_streaming_quantized", "export_native", "test_native_quantized", "export_stablehlo",
-)
-_NOT_PORTED = "not ported yet (ROADMAP queue item 6, exports): setting it to 1 raises"
+# flag -> the ROADMAP queue item that ports it
+_NOT_PORTED = {
+    "test_tflite_nonstreaming": 9, "test_tflite_nonstreaming_quantized": 9,
+    "test_tflite_streaming": 9, "test_tflite_streaming_quantized": 9, "export_stablehlo": 7,
+}
+
+
+def _not_ported(name: str) -> str:
+    return f"not ported yet (ROADMAP queue item {_NOT_PORTED[name]}): setting it to 1 raises"
 
 
 def parse(text):
@@ -74,11 +81,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Streamed ambient ROC with the streaming model")
     parser.add_argument("--test_tf_nonstreaming", type=int, default=0,
                         help="Test-set accuracy of the non-streaming model")
-    for name in _EXPORT_FLAGS:
-        parser.add_argument(f"--{name}", type=int, default=0, help=_NOT_PORTED)
+    parser.add_argument("--export_native", type=int, default=1,
+                        help="Export train_dir/native/model.mww and model_quant.mww for the "
+                             "C++ streaming runtime (native/src/mww_runtime.cc)")
+    parser.add_argument("--test_native_quantized", type=int, default=0,
+                        help="Streamed ambient ROC of native/model_quant.mww through the C++ "
+                             "runtime (requires --export_native)")
+    for name in _NOT_PORTED:
+        parser.add_argument(f"--{name}", type=int, default=0, help=_not_ported(name))
     parser.add_argument("--mesh", type=str, default="auto",
                         help="'auto' or 'off' (one device), or a device count; more than "
-                             "one device is not ported yet (ROADMAP queue item 7)")
+                             "one device is not ported yet (ROADMAP queue item 10)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to train and evaluate on: cuda (default) or cpu")
     sub = parser.add_subparsers(dest="model_name", required=True)
@@ -88,6 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def model_config_from_flags(flags):
+    from microwakeword_tpu_torch.models import inception as I
     from microwakeword_tpu_torch.models import mixednet as MX
 
     if flags.model_name == "mixednet":
@@ -107,7 +121,18 @@ def model_config_from_flags(flags):
             spectrogram_length=10_000,  # placeholder; derive_config replaces it
         )
     if flags.model_name == "inception":
-        raise NotImplementedError("the Inception model is not ported yet: ROADMAP queue item 3")
+        return I.InceptionConfig(
+            cnn1_filters=tuple(parse(flags.cnn1_filters)),
+            cnn1_kernel_sizes=tuple(parse(flags.cnn1_kernel_sizes)),
+            cnn1_subspectral_groups=tuple(parse(flags.cnn1_subspectral_groups)),
+            cnn2_filters1=tuple(parse(flags.cnn2_filters1)),
+            cnn2_filters2=tuple(parse(flags.cnn2_filters2)),
+            cnn2_kernel_sizes=tuple(parse(flags.cnn2_kernel_sizes)),
+            cnn2_subspectral_groups=tuple(parse(flags.cnn2_subspectral_groups)),
+            cnn2_dilation=tuple(parse(flags.cnn2_dilation)),
+            dropout=flags.dropout,
+            spectrogram_length=10_000,  # placeholder; derive_config replaces it
+        )
     raise ValueError(f"unknown model {flags.model_name!r}")
 
 
@@ -117,29 +142,74 @@ def _mesh_devices(mesh: str) -> int:
     count = int(mesh)
     if count > 1:
         raise NotImplementedError(
-            f"--mesh {count}: more than one device is not ported yet: ROADMAP queue item 7")
+            f"--mesh {count}: more than one device is not ported yet: ROADMAP queue item 10")
     return count
 
 
+def export_native(bundle, model, feature_handler, config: dict, native_dir: str) -> dict:
+    """``native_dir``/model.mww, and model_quant.mww calibrated on 200
+    training windows (the JAX CLI's representative set), as the JAX CLI
+    writes them; returns {"float": path, "int8": path or None}.  An int8
+    export that raises ValueError (no int8 form, or the exporter's
+    self-check) is skipped with a message, as in the JAX CLI."""
+    from microwakeword_tpu_torch.export.native_runtime import export_model
+
+    os.makedirs(native_dir, exist_ok=True)
+    out = {"float": os.path.join(native_dir, "model.mww"), "int8": None}
+    state = model.state_dict()
+    export_model(bundle, state, out["float"])
+    print(f"native streaming model: {out['float']}")
+    try:
+        calib, _, _ = feature_handler.get_data(
+            "training", batch_size=200, features_length=config["spectrogram_length"],
+            truncation_strategy="default")
+        quant_path = os.path.join(native_dir, "model_quant.mww")
+        export_model(bundle, state, quant_path, quantize=True, calibration=calib)
+        out["int8"] = quant_path
+        print(f"native int8 streaming model: {quant_path}")
+    except ValueError as e:
+        print(f"native int8 export skipped: {e}")
+    return out
+
+
+def native_streaming_roc(bundle, model, feature_handler, config: dict, path: str,
+                         folder: str, accuracy_name: str) -> dict:
+    """The streamed ambient ROC of the ``.mww`` at ``path`` run by the C++
+    runtime, one track at a time from a reset state."""
+    from microwakeword_tpu_torch.evaluate.streaming_eval import streaming_model_roc
+    from microwakeword_tpu_torch.native import StreamingRuntime
+
+    runner = StreamingRuntime(path)
+
+    def native_stream_fn(_model, x):
+        runner.reset()
+        return runner.predict_spectrogram(x[0])
+
+    return streaming_model_roc(bundle, model, feature_handler, config, folder=folder,
+                               accuracy_name=accuracy_name, stream_fn=native_stream_fn)
+
+
 def run(flags, config: dict) -> dict:
-    """Trains (``--train 1``), loads ``--use_weights`` and evaluates, as the
-    JAX CLI does after reading its YAML.  Returns {"history", "streaming_roc",
-    "accuracy"} (None where not run)."""
+    """Trains (``--train 1``), loads ``--use_weights``, evaluates and exports,
+    as the JAX CLI does after reading its YAML.  Returns {"history",
+    "streaming_roc", "accuracy", "native", "native_quantized_roc"} (None
+    where not run)."""
     from microwakeword_tpu_torch.data.store import FeatureHandler
     from microwakeword_tpu_torch.evaluate.streaming_eval import model_accuracy, streaming_model_roc
     from microwakeword_tpu_torch.models import build_model
     from microwakeword_tpu_torch.train import loop as training
 
-    for name in _EXPORT_FLAGS:
+    for name in _NOT_PORTED:
         if getattr(flags, name):
-            raise NotImplementedError(f"--{name}: {_NOT_PORTED}")
+            raise NotImplementedError(f"--{name}: {_not_ported(name)}")
     mesh = _mesh_devices(flags.mesh)
     device = resolve_device(flags.device)
     bundle = build_model(flags.model_name, config["model_config"])
     feature_handler = FeatureHandler(config, device)
 
     train_dir = config["train_dir"]
-    out = {"history": None, "streaming_roc": None, "accuracy": None}
+    out = {"history": None, "streaming_roc": None, "accuracy": None, "native": None,
+           "native_quantized_roc": None}
     if flags.train:
         _, out["history"] = training.train(
             bundle, config, feature_handler, restore_checkpoint=bool(flags.restore_checkpoint),
@@ -160,6 +230,16 @@ def run(flags, config: dict) -> dict:
             bundle, model, feature_handler, config, data_set="testing",
             folder=os.path.join(train_dir, "non_stream"), accuracy_name="testing_set_metrics.txt")
         print(f"nonstreaming accuracy: {out['accuracy']['accuracy']:.4%}")
+
+    native_dir = os.path.join(train_dir, "native")
+    if flags.export_native:
+        out["native"] = export_native(bundle, model, feature_handler, config, native_dir)
+    if (flags.test_native_quantized and flags.export_native and out["native"]["int8"]
+            and feature_handler.get_mode_size("testing_ambient")):
+        out["native_quantized_roc"] = native_streaming_roc(
+            bundle, model, feature_handler, config, out["native"]["int8"], native_dir,
+            "quantized_streaming_roc.txt")
+        print(f"native int8 streaming ROC AUC: {out['native_quantized_roc']['auc']:.5f}")
     return out
 
 

@@ -8,14 +8,17 @@ the layout of each kernel:
 
   flax                                   port
   StreamConv  kernel [k, in, out]        weight [out, in, k]    (F.conv1d)
+  StreamConvTranspose kernel [k, out, in] weight [in, out, k]   (F.conv_transpose1d)
   MixConv     kernel [kmax, 1, C]        weight [C, 1, kmax]    (depthwise)
   PointwiseConv / Dense kernel [in, out] weight [out, in]       (F.linear)
   BatchNorm_i/BatchNorm_0/{scale, bias}  BatchNorm_i.{scale, bias}
   batch_stats .../{mean, var}            BatchNorm_i.{mean, var} (buffers)
+  .../SubSpectralNorm_0/BatchNorm_0/*    .../SubSpectralNorm_0.BatchNorm_0.*
 
 ``L.BatchNorm`` wraps ``nn.BatchNorm`` in the JAX package, hence the nested
-``BatchNorm_i/BatchNorm_0`` on the flax side.  Both directions copy values
-bit for bit.
+``BatchNorm_i/BatchNorm_0`` on the flax side; ``SubSpectralNorm`` holds a
+bare ``nn.BatchNorm``, so its ``BatchNorm_0`` maps one to one.  Both
+directions copy values bit for bit.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def _kind(module_name: str) -> str:
 
 def _to_port(kind: str, leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
-        if kind in ("StreamConv", "MixConv"):
+        if kind in ("StreamConv", "StreamConvTranspose", "MixConv"):
             return "weight", np.array(arr.transpose(2, 1, 0), order="C")
         if kind in ("PointwiseConv", "Dense"):
             return "weight", np.array(arr.T, order="C")
@@ -63,7 +66,7 @@ def _to_port(kind: str, leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
 
 def _to_flax(kind: str, leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "weight":
-        if kind in ("StreamConv", "MixConv"):
+        if kind in ("StreamConv", "StreamConvTranspose", "MixConv"):
             return "kernel", np.array(arr.transpose(2, 1, 0), order="C")
         if kind in ("PointwiseConv", "Dense"):
             return "kernel", np.array(arr.T, order="C")
@@ -93,8 +96,8 @@ def state_to_flax(state: dict) -> dict:
         kind = _kind(modules[-1])
         arr = value.numpy() if hasattr(value, "numpy") else np.asarray(value)
         name, arr = _to_flax(kind, leaf, arr)
-        if kind == "BatchNorm":
-            modules = modules + ["BatchNorm_0"]
+        if kind == "BatchNorm" and not (len(modules) > 1 and _kind(modules[-2]) == "SubSpectralNorm"):
+            modules = modules + ["BatchNorm_0"]  # L.BatchNorm's inner nn.BatchNorm
         collection = "batch_stats" if leaf in ("mean", "var") else "params"
         flat[collection]["/".join(modules + [name])] = arr
     return {k: _unflatten(v) for k, v in flat.items() if v}

@@ -98,17 +98,6 @@ class Dense(L.PointwiseConv):
         super().__init__(in_features, features, use_bias=True)
 
 
-def _apply(layer: nn.Module, name: str, x: torch.Tensor, cache, new_cache) -> torch.Tensor:
-    """``layer(x)``, or its streaming step with the ring under ``name/ring``."""
-    if cache is None:
-        return layer(x)
-    key = f"{name}/ring"
-    y, ring = layer.step(x, cache.get(key))
-    if ring is not None:
-        new_cache[key] = ring
-    return y
-
-
 class SpatialAttention(nn.Module):
     """CBAM-style spatial attention over the tail window (mixednet.py:80-99).
 
@@ -125,13 +114,13 @@ class SpatialAttention(nn.Module):
     def run(self, x: torch.Tensor, prefix: str, cache, new_cache) -> torch.Tensor:
         pooled = torch.stack([x.mean(dim=-1), x.amax(dim=-1)], dim=-1)  # [B, T, 2]
         att = torch.sigmoid(
-            _apply(self.StreamConv_0, f"{prefix}/StreamConv_0", pooled, cache, new_cache)
+            L.stream_apply(self.StreamConv_0, f"{prefix}/StreamConv_0", pooled, cache, new_cache)
         )
-        net = _apply(self.StreamBuffer_0, f"{prefix}/StreamBuffer_0", x, cache, new_cache)
+        net = L.stream_apply(self.StreamBuffer_0, f"{prefix}/StreamBuffer_0", x, cache, new_cache)
         return net[:, -att.shape[1] :] * att
 
 
-class MixedNet(nn.Module):
+class MixedNet(L.StreamingModel):
     def __init__(self, cfg: MixedNetConfig, input_features: int = 40):
         super().__init__()
         self.cfg = cfg
@@ -189,16 +178,10 @@ class MixedNet(nn.Module):
                 frames = 1
         self.dense = add("Dense", Dense(c * frames, 1))
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Glorot kernels, zero biases, BN scale 1 / bias 0 / mean 0 / var 1."""
-        for module in self.modules():
-            if module is not self and hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
-
     def _run(self, x: torch.Tensor, cache, new_cache) -> torch.Tensor:
         cfg = self.cfg
         if self.first_conv is not None:
-            x = torch.relu(_apply(self.get_submodule(self.first_conv), self.first_conv,
+            x = torch.relu(L.stream_apply(self.get_submodule(self.first_conv), self.first_conv,
                                   x, cache, new_cache))
         for residual, units in self.blocks:
             if residual is not None:
@@ -206,7 +189,7 @@ class MixedNet(nn.Module):
                 r = bn(pw(x))
             for mix, pw, bn in units:
                 if mix is not None:
-                    x = _apply(self.get_submodule(mix), mix, x, cache, new_cache)
+                    x = L.stream_apply(self.get_submodule(mix), mix, x, cache, new_cache)
                 x = self.get_submodule(bn)(self.get_submodule(pw)(x))
                 if residual is not None:
                     r = L.align_time(r, x)
@@ -217,27 +200,13 @@ class MixedNet(nn.Module):
             if cfg.spatial_attention:
                 x = tail.run(x, self.tail, cache, new_cache)
             else:
-                x = _apply(tail, self.tail, x, cache, new_cache)
+                x = L.stream_apply(tail, self.tail, x, cache, new_cache)
             if cfg.pooled:
                 x = x.amax(dim=1, keepdim=True) if cfg.max_pool else x.mean(dim=1, keepdim=True)
         x = x.reshape(x.shape[0], -1)  # [B, T, C] flattens time-major
         return torch.sigmoid(self.get_submodule(self.dense)(x))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, 40] spectrogram -> [B, 1] wake probability."""
+    def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
+        """[B, T, 40] spectrogram -> [B, 1] wake probability.  MixedNet has no
+        dropout layer: ``dropout`` (see ``Inception.forward``) is unused."""
         return self._run(x, None, None)
-
-    def step(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
-        """Newest [B, stride, 40] slices -> ([B, 1] probs, new cache)."""
-        new_cache = {}
-        probs = self._run(x, cache, new_cache)
-        return probs, new_cache
-
-    def cache_shapes(self, batch_size: int) -> dict:
-        """{"<module path>/ring": (B, ring, C)} for every layer with a ring."""
-        shapes = {}
-        for path, module in self.named_modules():
-            if getattr(module, "ring", 0) > 0:
-                key = path.replace(".", "/") + "/ring"
-                shapes[key] = (batch_size, module.ring, module.in_features)
-        return shapes

@@ -5,11 +5,13 @@
 adds the slices consumed by valid padding.  ``flagship_config`` is the
 published okay_nabu-style MixedNet: 64x4 filters, kernels [5],[7,11],[9,15],
 [23], first conv 32 filters k5 s3 (204 input frames at 1.5 s / 10 ms).
-The Inception preset waits for the Inception slice.
+``default_inception_config`` is the Inception family's defaults at 1.5 s /
+20 ms hops: 102 input frames, 28 of them consumed by the valid convs.
 """
 
 from __future__ import annotations
 
+from microwakeword_tpu_torch.models import inception as I
 from microwakeword_tpu_torch.models import mixednet as MX
 
 SAMPLE_RATE = 16000
@@ -47,3 +49,10 @@ def flagship_config(clip_duration_ms: int = 1500, window_step_ms: int = 10):
         clip_duration_ms, window_step_ms, kw["stride"], dropped
     )
     return MX.MixedNetConfig(spectrogram_length=spectrogram_length, **kw)
+
+
+def default_inception_config(clip_duration_ms: int = 1500, window_step_ms: int = 20):
+    """The Inception defaults with the input length of the clip and hop."""
+    dropped = I.spectrogram_slices_dropped(I.InceptionConfig())
+    _, spectrogram_length = derive_lengths(clip_duration_ms, window_step_ms, 1, dropped)
+    return I.InceptionConfig(spectrogram_length=spectrogram_length)

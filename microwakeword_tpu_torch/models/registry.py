@@ -5,7 +5,10 @@ parameters and BatchNorm buffers are the model's state, and the same module
 drives the training and inference forward passes and the streaming step.
 Modules stay in eval mode between calls.  The streaming
 ring buffers live in an explicit cache dict passed to and returned by
-``stream_step``.
+``stream_step``.  The two families, MixedNet and Inception, share the
+module interface (``forward(x, dropout)``, ``step``, ``cache_shapes``,
+``reset_parameters``, from ``layers.StreamingModel``); ``FAMILIES`` gives
+each its module and its count of frames consumed by valid convs.
 """
 
 from __future__ import annotations
@@ -16,7 +19,15 @@ from typing import Any
 import torch
 
 from microwakeword_tpu_torch.device import resolve_device
-from microwakeword_tpu_torch.models import mixednet
+from microwakeword_tpu_torch.models import inception, mixednet
+
+# name -> (config class, module class, input frames the valid convs consume)
+FAMILIES = {
+    "mixednet": (mixednet.MixedNetConfig, mixednet.MixedNet,
+                 mixednet.spectrogram_slices_dropped),
+    "inception": (inception.InceptionConfig, inception.Inception,
+                  inception.spectrogram_slices_dropped),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,17 +38,17 @@ class ModelBundle:
     input_features: int = 40
 
     # ---- construction -------------------------------------------------
-    def build(self) -> mixednet.MixedNet:
-        return mixednet.MixedNet(self.config, self.input_features)
+    def build(self) -> torch.nn.Module:
+        return FAMILIES[self.name][1](self.config, self.input_features)
 
-    def init(self, generator: torch.Generator, device=None) -> mixednet.MixedNet:
+    def init(self, generator: torch.Generator, device=None) -> torch.nn.Module:
         """A module with Glorot kernels drawn from ``generator`` (on the CPU),
         zero biases and identity BatchNorm, moved to ``device``."""
         model = self.build()
         model.reset_parameters(generator)
         return model.to(resolve_device(device)).eval()
 
-    def load(self, state: dict, device=None) -> mixednet.MixedNet:
+    def load(self, state: dict, device=None) -> torch.nn.Module:
         """A module holding ``state`` (name -> array or tensor, as
         ``models/convert.py`` gives it), on ``device``."""
         model = self.build()
@@ -45,22 +56,24 @@ class ModelBundle:
         return model.to(resolve_device(device)).eval()
 
     # ---- non-streaming ------------------------------------------------
-    def forward(self, model: mixednet.MixedNet, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, model: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
         """[B, T, F] -> [B, 1] probabilities (running BN stats)."""
         return model(x)
 
-    def forward_train(self, model: mixednet.MixedNet, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, model: torch.nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
         """Training forward: [B, T, F] -> [B, 1] probabilities normalised with
-        the batch's statistics, which also update the BatchNorm buffers.  The
-        module is back in eval mode when it returns."""
+        the batch's statistics, which also update the BatchNorm buffers.
+        ``dropout`` drives the dropout layer where the family has one
+        (Inception): the generator its keep mask is drawn from, or the keep
+        mask itself.  The module is back in eval mode when it returns."""
         model.train()
         try:
-            return model(x)
+            return model(x, dropout)
         finally:
             model.eval()
 
     # ---- streaming ----------------------------------------------------
-    def stream_init(self, model: mixednet.MixedNet, batch_size: int = 1) -> dict:
+    def stream_init(self, model: torch.nn.Module, batch_size: int = 1) -> dict:
         """Zero ring buffers for ``batch_size`` independent streams."""
         param = next(model.parameters())
         return {
@@ -68,13 +81,13 @@ class ModelBundle:
             for key, shape in model.cache_shapes(batch_size).items()
         }
 
-    def stream_step(self, model: mixednet.MixedNet, cache: dict,
+    def stream_step(self, model: torch.nn.Module, cache: dict,
                     frames: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """[B, stride, F] newest slices -> ([B, 1] probs, new cache)."""
         return model.step(frames, cache)
 
     @torch.no_grad()
-    def stream_scan(self, model: mixednet.MixedNet, x: torch.Tensor,
+    def stream_scan(self, model: torch.nn.Module, x: torch.Tensor,
                     cache: dict | None = None) -> torch.Tensor:
         """Steps over a [B, T, F] spectrogram; T % stride frames at the end
         are dropped.  Returns [B, T // stride, 1] per-step probabilities."""
@@ -97,14 +110,12 @@ class ModelBundle:
 
     @property
     def slices_dropped(self) -> int:
-        return mixednet.spectrogram_slices_dropped(self.config)
+        return FAMILIES[self.name][2](self.config)
 
 
 def build_model(name: str, config: Any = None, **overrides) -> ModelBundle:
-    """Builds a ModelBundle for 'mixednet' ('inception' waits for its slice)."""
-    if name == "mixednet":
-        cfg = config or mixednet.MixedNetConfig(**overrides)
-        return ModelBundle(name=name, config=cfg, stride=cfg.stride)
-    if name == "inception":
-        raise NotImplementedError("the Inception model is not ported yet")
-    raise ValueError(f"unknown model {name!r}; expected 'mixednet' or 'inception'")
+    """Builds a ModelBundle for 'mixednet' or 'inception'."""
+    if name not in FAMILIES:
+        raise ValueError(f"unknown model {name!r}; expected 'mixednet' or 'inception'")
+    cfg = config or FAMILIES[name][0](**overrides)
+    return ModelBundle(name=name, config=cfg, stride=cfg.stride)

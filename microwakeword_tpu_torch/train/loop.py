@@ -103,9 +103,10 @@ class TrainStep:
 
     ``step(**phase)`` draws the batch from the corpus with ``generator``
     (``sampler.sample_any``: spectrograms, raw audio through the frontend
-    kernel, or both); ``step_on_batch`` takes a gathered batch of
-    spectrogram windows instead (the JAX package's host-streamed form),
-    [steps, B, ...] when ``steps_per_call`` > 1.
+    kernel, or both), and the model's dropout keep mask, where it has a
+    dropout (Inception), from the same generator; ``step_on_batch`` takes a
+    gathered batch of spectrogram windows instead (the JAX package's
+    host-streamed form), [steps, B, ...] when ``steps_per_call`` > 1.
     Either reports the last sub-step's metrics (0-dim tensors).
     """
 
@@ -157,7 +158,7 @@ class TrainStep:
     def _sub_step(self, feats, labels, penalties, learning_rate: float,
                   positive_class_weight: float, negative_class_weight: float):
         weights = penalties * torch.where(labels > 0.5, positive_class_weight, negative_class_weight)
-        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype))
+        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype), self.generator)
         loss = weighted_bce(probs, labels, weights)
         grads = torch.autograd.grad(loss, self.params)
         torch.cat([g.reshape(-1) for g in grads], out=self.grad)
@@ -288,7 +289,7 @@ def _check_ported(config: dict, mesh) -> None:
         raise ValueError(f"frontend_backend must be one of {FRONTEND_BACKENDS}, got {backend!r}")
     if mesh not in (None, 1):
         raise NotImplementedError(
-            f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 7, multi-GPU")
+            f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 10, multi-GPU")
 
 
 def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = False,
@@ -324,7 +325,7 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
         packed = _pack_corpus(feature_handler.providers, config, dev)
     spc_cfg = config.get("steps_per_call", "auto")
     # auto: one step per call on the card for now (a CUDA graph of the step
-    # is queued in ROADMAP item 8)
+    # is queued in ROADMAP item 11)
     steps_per_call = 1 if spc_cfg in ("auto", None, "") else int(spc_cfg)
     generator = torch.Generator(device=dev).manual_seed(seed)
     train_step = make_train_step(bundle, model, packed, batch_size, features_length,

@@ -9,6 +9,9 @@ store, against the JAX package where it has a counterpart.
   weights and store (AUC and curves to 1e-6);
 - raw-audio training (clips-type sets, alone, mixed with mmap sets, and
   with pool refresh) learns the JAX package's tone task through the CLI;
+- the Inception family trains through the CLI, and the default
+  ``--export_native 1`` writes both ``.mww`` files, which the C++ runtime
+  runs like the port's ``stream_scan``;
 - what the port does not carry yet raises NotImplementedError naming its
   ROADMAP queue item.
 """
@@ -135,7 +138,8 @@ def test_cli_writes_artifacts(store, trained):
     run = root / "run"
     for name in ("best_weights.pt", "last_weights.pt", "restore/ckpt.pt", "training_config.yaml",
                  "model_summary.txt", "metrics.jsonl", "streaming/streaming_roc.txt",
-                 "non_stream/testing_set_metrics.txt"):
+                 "non_stream/testing_set_metrics.txt", "native/model.mww",
+                 "native/model_quant.mww"):
         assert (run / name).exists(), name
     assert any(p.name.endswith("_weights_10.pt") for p in (run / "train").iterdir())
     records = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
@@ -229,9 +233,9 @@ def test_model_accuracy_matches_jax(trained, twin, data_set, use_streaming):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--export_native", "1"], "item 6"),
-    (["--test_tflite_streaming", "1"], "item 6"),
-    (["--mesh", "2"], "item 7"),
+    (["--export_stablehlo", "1"], "item 7"),
+    (["--test_tflite_streaming", "1"], "item 9"),
+    (["--mesh", "2"], "item 10"),
 ])
 def test_cli_flags_not_ported_raise(store, extra, item):
     root, _ = store
@@ -240,11 +244,46 @@ def test_cli_flags_not_ported_raise(store, extra, item):
                   "--train", "0"] + extra + MODEL_FLAGS)
 
 
-def test_inception_raises(store):
-    root, _ = store
-    with pytest.raises(NotImplementedError, match="item 3"):
-        CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
-                  "inception"])
+INCEPTION_FLAGS = ["inception", "--cnn1_filters", "8", "--cnn1_kernel_sizes", "3",
+                   "--cnn1_subspectral_groups", "4", "--cnn2_filters1", "6,8",
+                   "--cnn2_filters2", "8,8", "--cnn2_kernel_sizes", "3,3",
+                   "--cnn2_subspectral_groups", "1,2", "--cnn2_dilation", "1,2"]
+
+
+def test_inception_raises(store, tmp_path):
+    """Inception through the CLI on the CPU (it raised before its slice):
+    the JAX run's artifact names, ``native/model.mww`` and the int8 file
+    from the default ``--export_native 1``, the int8 file's streamed ROC
+    through the runtime, and the float file run by the runtime like the
+    port's ``stream_scan`` on a test ambient track."""
+    from microwakeword_tpu_torch.native import StreamingRuntime
+
+    root, config = store
+    with open(tmp_path / "cfg.yaml", "w") as f:
+        yaml.safe_dump(dict(config, train_dir=str(tmp_path / "run")), f)
+    argv = ["--training_config", str(tmp_path / "cfg.yaml"), "--device", "cpu",
+            "--test_native_quantized", "1"] + INCEPTION_FLAGS
+    out = CLI.main(argv)
+    run = tmp_path / "run"
+    for name in ("best_weights.pt", "last_weights.pt", "restore/ckpt.pt", "training_config.yaml",
+                 "model_summary.txt", "metrics.jsonl", "streaming/streaming_roc.txt",
+                 "native/model.mww", "native/model_quant.mww",
+                 "native/quantized_streaming_roc.txt"):
+        assert (run / name).exists(), name
+    assert out["native"] == {"float": str(run / "native" / "model.mww"),
+                             "int8": str(run / "native" / "model_quant.mww")}
+    assert np.isfinite(out["streaming_roc"]["auc"])
+    assert np.isfinite(out["native_quantized_roc"]["auc"])
+    assert out["history"][-1]["train"]["accuracy"] > 0.85
+    flags = CLI.build_parser().parse_args(argv)
+    derived = derive_config(config, CLI.model_config_from_flags(flags))
+    bundle = build_model("inception", derived["model_config"])
+    model = T.load_weights(bundle, str(run / "best_weights.pt"), device="cpu")
+    track = FeatureHandler(derived).get_data("testing_ambient", 16, bundle.spectrogram_length,
+                                             "none")[0][0]
+    want = bundle.stream_scan(model, torch.from_numpy(track.astype(np.float32))[None])
+    got = StreamingRuntime(str(run / "native" / "model.mww")).predict_spectrogram(track)
+    np.testing.assert_allclose(got, want.reshape(-1).numpy(), rtol=2e-4, atol=2e-5)
 
 
 def test_train_options_not_ported_raise(trained, tmp_path):

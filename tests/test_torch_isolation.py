@@ -15,6 +15,7 @@ import torch
 
 from microwakeword_tpu_torch import model_train_eval as CLI
 from microwakeword_tpu_torch.config import derive_config
+from microwakeword_tpu_torch.export import native_runtime
 from microwakeword_tpu_torch.frontend import plain
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, presets
@@ -36,6 +37,7 @@ from microwakeword_tpu_torch.data import sampler
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
+from microwakeword_tpu_torch.export import native_quant, native_runtime
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import MixedNetConfig, build_model, presets
 from microwakeword_tpu_torch.train import loop
@@ -46,6 +48,13 @@ audio = np.random.default_rng(0).integers(-8000, 8000, 8000).astype(np.int16)
 probs = Model.from_torch(bundle, state, device="cpu").predict_clip(audio)
 assert probs.shape == (48 // 3,), probs.shape
 root = tempfile.mkdtemp()
+inception = build_model("inception", presets.default_inception_config())
+istate = inception.init(torch.Generator().manual_seed(0), device="cpu").state_dict()
+native_runtime.export_model(inception, istate, os.path.join(root, "inc.mww"))
+native_runtime.export_model(inception, istate, os.path.join(root, "inc_q.mww"), quantize=True)
+for name in ("inc.mww", "inc_q.mww"):
+    probs = Model.from_native(os.path.join(root, name), 20, device="cpu").predict_clip(audio, 20)
+    assert probs.shape == (24,), probs.shape
 rng = np.random.default_rng(0)
 for name in ("pos", "neg"):
     for mode in ("training", "validation"):
@@ -80,7 +89,8 @@ def test_import_and_predict_load_no_jax():
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "microwakeword_tpu_torch" in added
     for name in ("train.loop", "build_dataset", "data.refresh", "audio.io", "audio.vad", "audio.dsp",
-                 "audio.augmentation", "audio.clips", "audio.spectrograms"):
+                 "audio.augmentation", "audio.clips", "audio.spectrograms", "models.inception",
+                 "export.native_runtime", "export.native_quant", "native"):
         assert f"microwakeword_tpu_torch.{name}" in added, name
     assert [m for m in added if _forbidden(m)] == []
     assert "yaml" not in added  # only the CLI's main() reads YAML
@@ -102,6 +112,16 @@ def test_scan_covers_the_audio_path():
         assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
+def test_scan_covers_the_export_path():
+    """The scan below reaches the Inception model, the exporters and the
+    port's own binding of the C++ runtime (the JAX package's is
+    ``microwakeword_tpu.native``, which the port may not import)."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("models/inception.py", "export/native_runtime.py", "export/native_quant.py",
+                 "native.py", "_build.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
+
+
 @pytest.mark.parametrize("path", list(_sources()), ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -115,7 +135,7 @@ def test_sources_import_no_jax(path):
         assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     bundle = build_model("mixednet", presets.flagship_config())
     model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
@@ -128,6 +148,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
         bundle.load(state)
     with pytest.raises(RuntimeError, match="CUDA"):
         plain.streaming_state_init((2,))
+    inception = build_model("inception", presets.default_inception_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inception.init(torch.Generator().manual_seed(0))
+    path = str(tmp_path / "model.mww")
+    native_runtime.export_model(bundle, state, path)  # NumPy only: no device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model.from_native(path)
+    assert Model.from_native(path, device="cpu").predict_spectrogram(
+        np.zeros((9, 40), np.float32)).shape == (3,)
     assert Model.from_torch(bundle, state, device="cpu").predict_spectrogram(
         np.zeros((9, 40), np.float32)
     ).shape == (3,)
@@ -146,6 +175,13 @@ def test_train_and_run_default_to_cuda(monkeypatch, tmp_path):
     assert flags.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         CLI.run(flags, config)
+    inc_config = derive_config(dict(config, window_step_ms=20), presets.default_inception_config())
+    inc_flags = CLI.build_parser().parse_args(["--training_config", "unused.yaml", "inception"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.train(build_model("inception", inc_config["model_config"]), inc_config,
+                   feature_handler=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLI.run(inc_flags, inc_config)
     flags = CLI.build_parser().parse_args(
         ["--training_config", "unused.yaml", "--device", "cpu", "--train", "0", "mixednet"])
     with pytest.raises(ValueError, match="not trained"):  # the CPU gets past the device check

@@ -15,7 +15,8 @@ import torch
 
 from microwakeword_tpu.models import build_model as jax_build_model
 from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
-from microwakeword_tpu_torch.models import MixedNetConfig, build_model, convert, presets
+from microwakeword_tpu_torch.models import (InceptionConfig, MixedNetConfig, build_model,
+                                            convert, presets)
 from microwakeword_tpu_torch.models.mixednet import stream_phase
 
 torch.set_num_threads(2)
@@ -197,5 +198,12 @@ def test_init_is_glorot_per_group():
 
 
 def test_inception_waits_for_its_slice():
-    with pytest.raises(NotImplementedError):
-        build_model("inception")
+    """Inception's slice has come: ``build_model("inception")`` builds the
+    JAX defaults, and the module initialises and runs (the parity tests are
+    in tests/test_torch_inception.py)."""
+    bundle = build_model("inception")
+    assert bundle.config == InceptionConfig() and bundle.stride == 1
+    model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        probs = bundle.forward(model, torch.zeros(2, bundle.spectrogram_length, 40))
+    assert probs.shape == (2, 1) and bool(((probs > 0) & (probs < 1)).all())
