@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving, training, raw-audio and export paths on one CUDA card and checks them.
+"""Drives the port's serving, training, export, sweep and host-streaming paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -90,14 +90,38 @@ printing its own lines; any failure exits non-zero:
    test ambient tracks to rtol 2e-4 / atol 2e-5, and the int8 file the float
    one to 0.08; the streamed ROC AUC of the float and int8 files through the
    runtime beside the port's; the runtime's host CPU ms per audio-second;
-14. a JSON line of the kernels, then the last line
+14. population training and the sweep CLI at the flagship's full width on
+   phase 6's store: ``sweep.run()`` trains 8 members (seeds 0-7, learning
+   rates 0.001 and 0.0005, share_batch) with phase 6's recipe for 300 steps,
+   eval every 100; checks the leaderboard's 8 rows, that each member's
+   best_weights.pt loads and gives finite probabilities, that the members
+   differ and that member 0's loss falls below half its step-0 value; a
+   private-batch population of 4 on the card against a population of one
+   with member 2's seed (5 steps, in float64 to 5e-6, in float32 printed;
+   TF32 off); member-steps per second
+   by CUDA events of the solo step and of populations of 8 and 32
+   (share_batch) and 8 (private batches), kernels per step and the busy
+   share under the profiler, 10 steps under the sync check, the peak
+   memory; an Inception share_batch population of 4 with dropout for 20
+   steps (finite losses, members differ);
+15. host streaming: ``train()`` with ``corpus_residency: host`` for 200
+   steps (the loss and train accuracy checked as phase 6 does); the same
+   draws through the host producer and the resident gather give bit-equal
+   batches on the card; the host-mode step timed beside the resident step;
+   10 host-mode steps under the sync check (only a wait on a pinned
+   buffer's copy event is allowed, and counted); ``corpus_residency: auto``
+   with ``MWW_CORPUS_HBM_BUDGET`` below the corpus's bytes picks host and
+   prints the notice;
+16. a JSON line of the kernels, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -110,14 +134,14 @@ import time
 import numpy as np
 import torch
 
-from microwakeword_tpu_torch import _build, build_dataset
+from microwakeword_tpu_torch import _build, build_dataset, sweep
 from microwakeword_tpu_torch import model_train_eval as CLI
 from microwakeword_tpu_torch.audio.augmentation import Augmentation
 from microwakeword_tpu_torch.audio.clips import Clips
 from microwakeword_tpu_torch.audio.io import save_clip
 from microwakeword_tpu_torch.audio.spectrograms import features_to_uint16
 from microwakeword_tpu_torch.config import derive_config
-from microwakeword_tpu_torch.data import sampler
+from microwakeword_tpu_torch.data import host_stream, sampler
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
@@ -129,6 +153,7 @@ from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
 from microwakeword_tpu_torch.models.mixednet import stream_phase
 from microwakeword_tpu_torch.native import StreamingRuntime
+from microwakeword_tpu_torch.parallel import population
 from microwakeword_tpu_torch.train import loop as training
 from microwakeword_tpu_torch.train import metrics as M
 
@@ -207,6 +232,17 @@ INCEPTION_TEST = {"pos": {"testing": (10, 150, 250)},
 # (tests/test_native_runtime.py's tolerance).
 RUNTIME_RTOL, RUNTIME_ATOL = 2e-4, 2e-5
 INT8_ENVELOPE = 0.08  # the int8 file against the float one (tests/test_native_quant.py)
+# Phase 14: the sweep (8 members, seeds 0-7, two learning rates, share_batch),
+# the card's private-batch check (members, the member checked, steps;
+# tests/test_population.py's member-vs-solo tolerance), the populations timed
+# (share_batch, members) and Inception's population (members, steps).
+SWEEP_MEMBERS, SWEEP_LRS = 8, "0.001,0.0005"
+POP_PARITY, POP_ATOL = (4, 2, 5), 5e-6
+POP_TIMED = [(True, 8), (True, 32), (False, 8)]
+POP_TIMED_STEPS = 20
+INCEPTION_POP = (4, 20)
+# Phase 15: host streaming, 200 steps (eval every 100) through train().
+HOST_STEPS = [200]
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -1155,6 +1191,316 @@ def phase_export(dev: torch.device, smi: str, runs: list) -> dict:
     return results
 
 
+def events_ms(fn, steps: int, warmup: int = 5) -> tuple[float, float]:
+    """ms per call of ``fn`` by CUDA events over ``steps`` calls after
+    ``warmup``, and by the host clock."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def make_population(bundle, packed, members: int, share: bool, dev: torch.device, seed: int):
+    """A population step of ``members`` of the seed's consecutive seeds on
+    ``packed`` and its [N] hyperparameters (lr 0.001, class weights 1/20)."""
+    seeds = [seed + i for i in range(members)]
+    gens = [torch.Generator(device=dev).manual_seed(population.member_seed(1234, s)) for s in seeds]
+    pop = population.make_population_train_step(
+        bundle, packed, 128, bundle.spectrogram_length,
+        population.init_population(bundle, seeds, dev), gens, share_batch=share)
+    hyper = tuple(torch.full((members,), v, device=dev) for v in (0.001, 1.0, 20.0))
+    return pop, hyper
+
+
+def population_parity(bundle, packed, members: int, which: int, steps: int, sa: dict,
+                      dev: torch.device, dtype) -> float:
+    """``steps`` private-batch steps of a population of ``members`` (seeds
+    0.., learning rates 0.001 / 0.0005 in turn, class weights 1/20) in
+    ``dtype``, and of a population of one with member ``which``'s seed: the
+    max |d| of that member's parameters and statistics."""
+    lrs = [0.001, 0.0005] * (members // 2)
+
+    def run(seeds, rates):
+        gens = [torch.Generator(device=dev).manual_seed(population.member_seed(1234, s))
+                for s in seeds]
+        stacked = {k: v.to(dtype) for k, v in population.init_population(bundle, seeds, dev).items()}
+        pop = population.make_population_train_step(bundle, packed, 128, bundle.spectrogram_length,
+                                                    stacked, gens)
+        hyper = (torch.tensor(rates, device=dev), torch.ones(len(seeds), device=dev),
+                 torch.full((len(seeds),), 20.0, device=dev))
+        for _ in range(steps):
+            pop.step(*hyper, **sa)
+        return pop.state()
+
+    many, one = run(list(range(members)), lrs), run([which], [lrs[which]])
+    return max(float((many[k][which] - one[k][0]).abs().max()) for k in one)
+
+
+def phase_population(dev: torch.device, smi: str, seed: int, root: str, spectrograms: str) -> dict:
+    """Phase 14: the sweep CLI's run() at the flagship's full width on phase
+    6's store (SWEEP_MEMBERS members, seeds 0-7, learning rates SWEEP_LRS,
+    share_batch, phase 6's recipe and 300 steps, eval every 100): checks the
+    leaderboard, the members' weights, that they differ and that member 0's
+    loss falls below half its step-0 value; a private-batch population on
+    the card against a population of one (float64 held, float32 printed, as
+    phase 7 holds the step; TF32 off); member-steps per second
+    of the solo step and the POP_TIMED populations by CUDA events, kernels
+    and the busy share under the profiler, the sync check and the peak
+    memory; Inception's share_batch population with dropout."""
+    flags = sweep.build_parser().parse_args(
+        ["--training_config", os.path.join(root, "unused.yaml"), "--n_models", str(SWEEP_MEMBERS),
+         "--seeds", ",".join(str(seed + i) for i in range(SWEEP_MEMBERS)), "--learning_rates",
+         SWEEP_LRS, "--share_batch", "1", "--device", dev.type] + FLAGSHIP_FLAGS)
+    config = derive_config(dict(recipe(spectrograms, seed), train_dir=os.path.join(root, "sweep")),
+                           CLI.model_config_from_flags(flags))
+    length, batch = config["spectrogram_length"], config["batch_size"]
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    t0 = time.perf_counter()
+    out = sweep.run(flags, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_dir, history = config["train_dir"], out["history"]
+    with open(os.path.join(run_dir, "leaderboard.json")) as f:
+        leaderboard = json.load(f)
+    check(len(leaderboard) == SWEEP_MEMBERS, f"{len(leaderboard)} leaderboard rows")
+    handler = FeatureHandler(config)
+    val_x, _, _ = handler.get_data("validation", batch_size=batch, features_length=length,
+                                   truncation_strategy="truncate_start")
+    eval_probs = training.make_eval_fn(bundle)
+    for i in range(SWEEP_MEMBERS):
+        model = training.load_weights(
+            bundle, os.path.join(run_dir, f"member_{i:02d}", "best_weights.pt"), dev)
+        probs = eval_probs(model, val_x[:256])
+        check(probs.shape == (len(val_x[:256]),) and bool(np.isfinite(probs).all()),
+              f"member {i} probabilities")
+    final = out["variables"]
+    spread = min(float((final[k][i] - final[k][i + 1]).abs().max()) for k in final
+                 for i in range(SWEEP_MEMBERS - 1) if k.endswith("weight"))
+    check(spread > 1e-4, f"members' final weights differ by {spread}")
+    first = training.make_train_step(
+        bundle, bundle.init(torch.Generator().manual_seed(seed), device=dev),
+        handler.pack_training(dev), batch, length,
+        generator=torch.Generator(device=dev).manual_seed(population.member_seed(1234, seed)))
+    loss0 = float(first.step(**phase)["loss"])
+    packed = first.packed
+    del first
+    print(f"phase 14 sweep.run(): {SWEEP_MEMBERS} members x {out['sweep']['steps']} steps of batch "
+          f"{batch} x {length} frames (share_batch), wall {wall:.2f} s with {len(history)} "
+          f"evals of every member ({smi})")
+    for rec in history:
+        print(f"  step {rec['step']}: loss {np.array2string(rec['loss'], precision=4)} accuracy "
+              f"{np.array2string(rec['accuracy'], precision=3)}")
+    for row in leaderboard[:3]:
+        print(f"  leaderboard: member {row['member']} seed {row['seed']} lr "
+              f"{row['learning_rate']:.4g} best step {row['best_step']} faph "
+              f"{row['minimization']:.3f} avr {row['maximization']:.4f}")
+    last0 = float(history[-1]["loss"][0])
+    print(f"phase 14 member 0 loss {last0:.5f} at step {history[-1]['step']}, step-0 loss "
+          f"{loss0:.5f}; least max|d| between consecutive members' weights {spread:.3e}", flush=True)
+    check(last0 < 0.5 * loss0, f"member 0 loss {last0} did not fall below half of {loss0}")
+
+    # the card: a private-batch member against a population of one, in
+    # float64 (held to POP_ATOL) and in float32 (printed)
+    members, which, steps = POP_PARITY
+    sa = {k: phase[k] for k in ("time_mask_max_size", "time_mask_count", "freq_mask_max_size",
+                                "freq_mask_count")}
+    err = {dtype: population_parity(bundle, packed, members, which, steps, sa, dev, dtype)
+           for dtype in (torch.float64, torch.float32)}
+    print(f"phase 14 private batches: member {which} of {members} against a population of one "
+          f"with its seed after {steps} steps, parameters and statistics max|d| float64 "
+          f"{err[torch.float64]:.3e} (tolerance {POP_ATOL}), float32 {err[torch.float32]:.3e} "
+          f"(context; TF32 off)", flush=True)
+    check(err[torch.float64] <= POP_ATOL,
+          f"member {which} against a population of one: {err[torch.float64]}")
+
+    # member-steps per second: the solo step, then the populations
+    rates = {}
+    solo = training.make_train_step(bundle, bundle.init(torch.Generator().manual_seed(seed), dev),
+                                    packed, batch, length,
+                                    generator=torch.Generator(device=dev).manual_seed(seed))
+    ms, host = events_ms(lambda: solo.step(**phase), POP_TIMED_STEPS)
+    rates["solo"] = dict(ms=ms, host_ms=host, member_steps_per_s=1e3 / ms)
+    _, device_ms, _, launches, _ = device_profile(
+        lambda: [solo.step(**phase) for _ in range(PROFILED_STEPS)])
+    rates["solo"].update(kernels=launches / PROFILED_STEPS)
+    del solo
+    peak = 0
+    for share, n in POP_TIMED:
+        label = f"{'share' if share else 'private'} {n}"
+        pop, hyper = make_population(bundle, packed, n, share, dev, seed)
+        torch.cuda.reset_peak_memory_stats()
+        ms, host = events_ms(lambda: pop.step(*hyper, **sa), POP_TIMED_STEPS)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        wall_ms, device_ms, top, launches, _ = device_profile(
+            lambda: [pop.step(*hyper, **sa) for _ in range(PROFILED_STEPS)])
+        rates[label] = dict(ms=ms, host_ms=host, member_steps_per_s=n * 1e3 / ms,
+                            kernels=launches / PROFILED_STEPS, device_ms=device_ms / PROFILED_STEPS,
+                            busy=device_ms / wall_ms if wall_ms else 0.0, top=top)
+        if n == 8:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(SYNC_CHECKED_STEPS):
+                    metrics = pop.step(*hyper, **sa)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(bool(torch.isfinite(metrics["loss"]).all()), f"{label}: loss after the sync check")
+        del pop
+    for label, r in rates.items():
+        extra = "" if label == "solo" else (
+            f", device {r['device_ms']:.4f} ms per step, busy share {r['busy']:.4f}")
+        print(f"phase 14 {label}: {r['ms']:.4f} ms per step by CUDA events over {POP_TIMED_STEPS} "
+              f"steps (host clock {r['host_ms']:.4f}), {r['member_steps_per_s']:.1f} member-steps/s "
+              f"({r['member_steps_per_s'] / rates['solo']['member_steps_per_s']:.2f}x the solo "
+              f"step), {r['kernels']:.1f} kernels per step{extra} ({smi})")
+        for key, ms_k, count in r.get("top", [])[:3]:
+            print(f"  {ms_k:9.3f} ms  x{count:<6d} {key}")
+    print(f"phase 14 sync check: {SYNC_CHECKED_STEPS} steps of each 8-member population under "
+          f"set_sync_debug_mode('error') raised nothing; peak memory of the timed populations "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+
+    # Inception: a share_batch population with dropout
+    members, steps = INCEPTION_POP
+    inception = build_model("inception", presets.default_inception_config())
+    check(inception.config.dropout == 0.2, f"dropout {inception.config.dropout}")
+    pop, hyper = make_population(inception, packed, members, True, dev, seed)
+    last = {}
+
+    def inception_step():
+        last["metrics"] = pop.step(*hyper, **sa)
+
+    ms, _ = events_ms(inception_step, steps - 1, warmup=1)
+    losses = last["metrics"]["loss"]
+    state = pop.state()
+    diff = min(float((state[k][i] - state[k][i + 1]).abs().max()) for k in state
+               for i in range(members - 1) if k.endswith("weight"))
+    _, _, _, launches, _ = device_profile(inception_step)
+    print(f"phase 14 Inception share_batch population of {members}, dropout "
+          f"{inception.config.dropout}: {steps} steps, {ms:.4f} ms per step by CUDA events after "
+          f"the first ({members * 1e3 / ms:.1f} member-steps/s), {launches} kernels per step, "
+          f"losses {np.array2string(losses.cpu().numpy(), precision=4)}, least max|d| between "
+          f"members {diff:.3e} ({smi})", flush=True)
+    check(bool(torch.isfinite(losses).all()), "Inception population losses")
+    check(diff > 1e-4, f"Inception members differ by {diff}")
+    return dict(rates=rates, wall=wall, parity=err, peak=peak)
+
+
+def phase_host_stream(dev: torch.device, smi: str, seed: int, root: str, spectrograms: str) -> dict:
+    """Phase 15: host streaming at full width on phase 6's store:
+    ``train()`` with ``corpus_residency: host`` (HOST_STEPS, eval every 100;
+    the loss and train accuracy checked as phase 6 does; validation accuracy
+    printed, since eval-mode BatchNorm needs 300 steps, phase 6); the same
+    draws through the host producer and the resident gather on the card,
+    bit for bit; the host-mode step timed beside the resident one; 10 host
+    steps under the sync check; ``auto`` over the env budget picks host."""
+    flags = CLI.build_parser().parse_args(
+        ["--training_config", os.path.join(root, "unused.yaml"), "--device", dev.type]
+        + FLAGSHIP_FLAGS)
+    config = derive_config(dict(recipe(spectrograms, seed), train_dir=os.path.join(root, "host"),
+                                training_steps=HOST_STEPS, learning_rates=[0.001],
+                                corpus_residency="host"), CLI.model_config_from_flags(flags))
+    length, batch = config["spectrogram_length"], config["batch_size"]
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    handler = FeatureHandler(config)
+    t0 = time.perf_counter()
+    _, history = training.train(bundle, config, handler, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    arrays = sampler.pack_training_arrays(handler.providers, device=dev)
+    data = host_stream.HostStreamedData(arrays)
+
+    def host_step(seed_offset: int = 0):
+        """A TrainStep from the seed's weights and a producer as train()
+        makes them."""
+        step = training.make_train_step(
+            bundle, bundle.init(torch.Generator().manual_seed(seed), device=dev), None, batch,
+            length, generator=torch.Generator(device=dev).manual_seed(seed))
+        producer = host_stream.HostBatchProducer(data, batch, length, 1, dev,
+                                                 torch.Generator().manual_seed(seed + seed_offset))
+        return step, producer
+
+    step, producer = host_step()
+    loss0 = float(step.step_on_batch(*producer(), **phase)["loss"])
+    print(f"phase 15 train() with corpus_residency: host, {sum(HOST_STEPS)} steps of batch {batch} x "
+          f"{length} frames, wall {wall:.2f} s with evals; corpus {data.nbytes / 1e6:.1f} MB in host "
+          f"RAM ({smi})")
+    for rec in history:
+        v = rec["validation"]
+        print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
+              f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f}; "
+              f"{rec['steps_per_sec']:.1f} steps/s (host clock, no sync)")
+    last = history[-1]["train"]
+    print(f"phase 15 step-0 loss {loss0:.5f}", flush=True)
+    check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
+    check(last["accuracy"] > 0.9, f"last train accuracy {last['accuracy']}")
+
+    # the same draws: the host producer against the resident gather on the card
+    resident = sampler.upload_training_arrays(arrays, dev)
+    draws = torch.Generator().manual_seed(seed + 7)
+    producer = host_stream.HostBatchProducer(data, batch, length, 1, dev,
+                                             torch.Generator().manual_seed(seed + 7))
+    for _ in range(3):
+        got = producer()
+        u = sampler.window_uniforms(data.meta, draws, batch).to(dev)
+        off, n, start, labels, weights = sampler.windows_from_uniforms(resident, u, length)
+        windows, valid = sampler.gather_windows(resident.frames, off, n, start, length)
+        for name, g, w in zip(("windows", "valid", "labels", "weights"), got,
+                              (windows, valid, labels, weights)):
+            check(g.device == w.device and torch.equal(g, w), f"host {name} against resident")
+    print("phase 15 the same draws: host producer and resident gather bit-equal on the card "
+          "(3 batches: windows, valid, labels, weights)", flush=True)
+
+    # the host-mode step beside the resident one
+    resident_step = training.make_train_step(
+        bundle, bundle.init(torch.Generator().manual_seed(seed), device=dev), resident, batch,
+        length, generator=torch.Generator(device=dev).manual_seed(seed))
+    step, producer = host_step()
+    times = {"resident": events_ms(lambda: resident_step.step(**phase), TIMED_STEPS),
+             "host": events_ms(lambda: step.step_on_batch(*producer(), **phase), TIMED_STEPS)}
+    draw_ms = events_ms(lambda: producer(), TIMED_STEPS)[1]
+    for label, (ms, host_ms) in times.items():
+        print(f"phase 15 {label} step: {ms:.4f} ms per step by CUDA events over {TIMED_STEPS} steps "
+              f"(host clock {host_ms:.4f} ms) ({smi})")
+    print(f"phase 15 the producer alone (draw, gather, copy): {draw_ms:.4f} host ms per batch; "
+          f"waits on a buffer's copy so far {producer.waits}", flush=True)
+    waits = producer.waits
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SYNC_CHECKED_STEPS):
+            metrics = step.step_on_batch(*producer(), **phase)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(math.isfinite(float(metrics["loss"])), "loss after the sync check")
+    print(f"phase 15 sync check: {SYNC_CHECKED_STEPS} host-mode steps under "
+          f"set_sync_debug_mode('error') raised nothing; {producer.waits - waits} waits on a "
+          f"pinned buffer's copy event", flush=True)
+
+    # auto over the budget picks host
+    nbytes = host_stream.corpus_nbytes(arrays)
+    auto = dict(config, corpus_residency="auto", training_steps=[2],
+                train_dir=os.path.join(root, "host_auto"))
+    os.environ["MWW_CORPUS_HBM_BUDGET"] = str(nbytes - 1)
+    captured = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(captured):
+            training.train(bundle, auto, FeatureHandler(auto), device=dev)
+    finally:
+        del os.environ["MWW_CORPUS_HBM_BUDGET"]
+    notice = [ln for ln in captured.getvalue().splitlines() if "streaming it from host RAM" in ln]
+    check(len(notice) == 1, "corpus_residency: auto over the budget printed no notice")
+    print(f"phase 15 auto with MWW_CORPUS_HBM_BUDGET={nbytes - 1} (corpus {nbytes} B): "
+          f"{notice[0]}", flush=True)
+    return dict(wall=wall, times=times, draw_ms=draw_ms)
+
+
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
     """Seeded noise at a per-stream level plus 0.4 s tone bursts, int16."""
     t = np.arange(samples) / FC.SAMPLE_RATE
@@ -1445,8 +1791,13 @@ def main() -> int:
         exported = phase_export(dev, smi, [
             ("flagship", bundle, flagship_config, flagship_out),
             ("inception", inception["bundle"], inception["config"], inception["out"])])
+        # 14. population training and the sweep; 15. host streaming
+        mark(14)
+        swept = phase_population(dev, smi, args.seed, work, spectrograms)
+        mark(15)
+        streamed = phase_host_stream(dev, smi, args.seed, work, spectrograms)
 
-    # 14. the kernels line, then the last line
+    # 16. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
@@ -1468,6 +1819,9 @@ def main() -> int:
         inception_serving_path_ms=inception_serving["path_ms"],
         inception_step_ms=inception["m"]["step_ms"],
         runtime_host_ms_per_audio_s={k: v["host_ms_per_audio_s"] for k, v in exported.items()},
+        population_member_steps_per_s={k: v["member_steps_per_s"] for k, v in swept["rates"].items()},
+        host_stream_step_ms=streamed["times"]["host"][0],
+        resident_step_ms=streamed["times"]["resident"][0],
     )]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -18,6 +18,7 @@ from microwakeword_tpu_torch.audio.clips import Clips
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.frontend import constants as C
 from microwakeword_tpu_torch.frontend.kernel import frontend_batch
+from microwakeword_tpu_torch.frontend.plain import float_pcm_to_int16
 
 
 def features_to_uint16(spec: np.ndarray) -> np.ndarray:
@@ -47,10 +48,12 @@ class SpectrogramGeneration:
         self.device = device
 
     def frontend(self, audio: np.ndarray) -> np.ndarray:
-        """One clip through ``frontend_batch`` on ``self.device``."""
+        """One clip through ``frontend_batch`` on ``self.device``; float PCM
+        is first truncated to int16 (``float_pcm_to_int16``), as the JAX
+        package's default per-clip frontend converts it."""
         audio = np.asarray(audio)
-        if audio.dtype != np.int16:
-            audio = audio.astype(np.float32)
+        if audio.dtype.kind == "f":
+            audio = float_pcm_to_int16(audio)
         x = torch.from_numpy(audio).to(resolve_device(self.device))
         return frontend_batch(x[None], self.step_ms)[0].cpu().numpy()
 

@@ -269,14 +269,27 @@ def windows_from_draws(data: PackedTrainingData, prov: torch.Tensor, u_clip: tor
     return off, n, start, data.provider_label[prov], data.provider_penalty[prov]
 
 
-def _draw_windows(data: PackedTrainingData, generator: torch.Generator, batch_size: int,
-                  features_length: int):
-    """The step's sampling draw: weighted provider choice (Gumbel-max),
-    uniform clip, window start per truncation strategy (windows_from_draws)."""
+def window_uniforms(data: PackedTrainingData, generator: torch.Generator,
+                    batch_size: int) -> torch.Tensor:
+    """The step's sampling draw: [B, P + 3] uniforms from ``generator`` (P
+    for the provider's Gumbel-max, then clip, random start, cutoff)."""
     p = data.provider_logits.shape[0]
-    u = torch.rand((batch_size, p + 3), generator=generator, device=data.device)
+    return torch.rand((batch_size, p + 3), generator=generator, device=data.device)
+
+
+def windows_from_uniforms(data: PackedTrainingData, u: torch.Tensor, features_length: int):
+    """Window placement from ``window_uniforms``' [B, P + 3] draw: weighted
+    provider choice (Gumbel-max), uniform clip, window start per truncation
+    strategy (windows_from_draws)."""
+    p = data.provider_logits.shape[0]
     prov = torch.argmax(data.provider_logits - torch.log(-torch.log(u[:, :p])), dim=1)
     return windows_from_draws(data, prov, u[:, p], u[:, p + 1], u[:, p + 2], features_length)
+
+
+def _draw_windows(data: PackedTrainingData, generator: torch.Generator, batch_size: int,
+                  features_length: int):
+    return windows_from_uniforms(data, window_uniforms(data, generator, batch_size),
+                                 features_length)
 
 
 def sample_batch_indices(data: PackedTrainingData, generator: torch.Generator, batch_size: int,

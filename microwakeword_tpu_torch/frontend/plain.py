@@ -158,6 +158,15 @@ def frontend_streaming(
     return _agc_output(sf, est) * FEATURE_SCALE, final
 
 
+def float_pcm_to_int16(audio: np.ndarray) -> np.ndarray:
+    """Float PCM in [-1, 1] -> int16 by the JAX package's per-clip rule
+    (``frontend/reference.py:220``): ``clip(x * 32768)`` truncated toward
+    zero by the int16 cast.  ``frontend_batch`` rounds instead, as
+    ``xla.py`` does; the per-clip entry points (``Model.predict_clip``,
+    ``SpectrogramGeneration.frontend``) convert by this rule first."""
+    return np.clip(audio * 32768, -32768, 32767).astype(np.int16)
+
+
 def frontend_batch(audio: torch.Tensor, step_ms: int = 10) -> torch.Tensor:
     """[B, N] int16/float samples -> [B, T, 40] float32 features in [0, 26].
 

@@ -5,7 +5,9 @@ streaming model's ring-buffer scan on the model's device), and the C++
 streaming runtime on an exported ``.mww`` file (``from_native``: the
 deployment artifact, on the host CPU).  Features come from the port's
 ``frontend_batch`` on the model's device (the CUDA kernel on the card) for
-both.  The TFLite and StableHLO loaders wait for their slices.
+both; ``predict_clip`` first truncates float PCM to int16 as the JAX
+package's per-clip frontend does (``frontend.plain.float_pcm_to_int16``).
+The TFLite and StableHLO loaders wait for their slices.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.frontend import frontend_batch
+from microwakeword_tpu_torch.frontend.plain import float_pcm_to_int16
 
 
 class Model:
@@ -68,9 +71,10 @@ class Model:
 
     @torch.inference_mode()
     def predict_clip(self, audio, step_ms: int = 10) -> np.ndarray:
-        """Raw 16 kHz PCM (int16, or float in [-1, 1]) -> probabilities."""
+        """Raw 16 kHz PCM (int16, or float in [-1, 1], truncated to int16 by
+        ``float_pcm_to_int16``) -> probabilities."""
         audio = np.array(audio)
         if audio.dtype.kind == "f":
-            audio = audio.astype(np.float32)
+            audio = float_pcm_to_int16(audio)
         pcm = torch.from_numpy(audio).to(self.device).reshape(1, -1)
         return self._predict(frontend_batch(pcm, step_ms=step_ms)[0])

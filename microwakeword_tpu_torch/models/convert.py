@@ -18,7 +18,10 @@ the layout of each kernel:
 ``L.BatchNorm`` wraps ``nn.BatchNorm`` in the JAX package, hence the nested
 ``BatchNorm_i/BatchNorm_0`` on the flax side; ``SubSpectralNorm`` holds a
 bare ``nn.BatchNorm``, so its ``BatchNorm_0`` maps one to one.  Both
-directions copy values bit for bit.
+directions copy values bit for bit.  A stacked population (the JAX
+``init_population``'s leaves with a leading [N] axis, the port's
+``parallel.population`` stacked state) converts member by member
+(``flax_population_to_state``, ``state_to_flax_population``).
 """
 
 from __future__ import annotations
@@ -101,3 +104,25 @@ def state_to_flax(state: dict) -> dict:
         collection = "batch_stats" if leaf in ("mean", "var") else "params"
         flat[collection]["/".join(modules + [name])] = arr
     return {k: _unflatten(v) for k, v in flat.items() if v}
+
+
+def flax_population_to_state(stacked: dict) -> dict:
+    """Stacked flax ``{'params', 'batch_stats'}`` ([N, ...] leaves) -> the
+    port's stacked state dict ([N, ...] arrays)."""
+    flat = {c: flatten(stacked[c]) for c in ("params", "batch_stats") if stacked.get(c)}
+    n = len(next(iter(flat["params"].values())))
+    members = [flax_to_state({c: _unflatten({p: np.asarray(a)[i] for p, a in leaves.items()})
+                              for c, leaves in flat.items()}) for i in range(n)]
+    return {k: np.stack([m[k] for m in members]) for k in members[0]}
+
+
+def state_to_flax_population(stacked: dict) -> dict:
+    """The port's stacked state dict ([N, ...] arrays or CPU tensors) ->
+    stacked flax ``{'params', 'batch_stats'}``."""
+    n = len(next(iter(stacked.values())))
+    members = [state_to_flax({k: v[i] for k, v in stacked.items()}) for i in range(n)]
+    out = {}
+    for c in members[0]:
+        leaves = [flatten(m[c]) for m in members]
+        out[c] = _unflatten({p: np.stack([lv[p] for lv in leaves]) for p in leaves[0]})
+    return out

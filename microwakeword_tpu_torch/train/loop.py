@@ -4,7 +4,10 @@ periodic validation with two-step best-checkpoint selection, and
 checkpoints.  The corpus on the card is spectrograms, raw augmented audio
 (config ``raw_audio_training``: the frontend kernel runs inside the step) or
 both, and ``pool_refresh_steps`` refreshes the audio pools from a host thread
-(``data/refresh.py``).
+(``data/refresh.py``).  A spectrogram corpus over the card's budget, or any
+with config ``corpus_residency: host``, stays in host RAM and each step's
+batch is drawn and gathered on the host and copied to the card
+(``data/host_stream.py``).
 
 Schedules are padded with their last entry, Adam runs on probabilities'
 weighted BCE, validation runs every ``eval_step_interval`` steps and writes
@@ -32,6 +35,11 @@ import numpy as np
 import torch
 
 from microwakeword_tpu_torch.data import sampler as S
+from microwakeword_tpu_torch.data.host_stream import (
+    HostBatchProducer,
+    HostStreamedData,
+    pack_training_with_residency,
+)
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.train import metrics as M
@@ -105,8 +113,9 @@ class TrainStep:
     (``sampler.sample_any``: spectrograms, raw audio through the frontend
     kernel, or both), and the model's dropout keep mask, where it has a
     dropout (Inception), from the same generator; ``step_on_batch`` takes a
-    gathered batch of spectrogram windows instead (the JAX package's
-    host-streamed form), [steps, B, ...] when ``steps_per_call`` > 1.
+    gathered batch of spectrogram windows instead (the host-streamed form,
+    ``data/host_stream.py``), with a leading [steps] axis for several
+    sub-steps.
     Either reports the last sub-step's metrics (0-dim tensors).
     """
 
@@ -193,11 +202,11 @@ class TrainStep:
 
     def step_on_batch(self, windows, valid, labels, weights, **phase) -> dict:
         """The step on a gathered batch: windows [B, L, F] int16 (uint16
-        bits), valid [B, L], labels [B], penalty weights [B]; each with a
-        leading [steps_per_call] axis when steps_per_call > 1."""
+        bits), valid [B, L], labels [B], penalty weights [B]; or each with a
+        leading [steps] axis, one sub-step per entry."""
         masks, opt = self._split_phase(phase)
         batches = [(windows, valid, labels, weights)]
-        if self.steps_per_call > 1:
+        if windows.dim() == 4:
             batches = list(zip(windows, valid, labels, weights))
         for w, v, y, pen in batches:
             feats = S.finish_batch(self.generator, w, v, **masks)
@@ -258,26 +267,6 @@ def model_summary(model: torch.nn.Module) -> str:
     return "\n".join(lines)
 
 
-def _pack_corpus(providers, config: dict, device: torch.device) -> S.PackedTrainingData:
-    """The spectrogram corpus on ``device`` (config ``corpus_residency``: auto
-    and hbm keep it there; host streaming is not ported)."""
-    residency = str(config.get("corpus_residency", "auto"))
-    if residency == "host":
-        raise NotImplementedError(
-            "corpus_residency: host is not ported yet: ROADMAP queue item 5, host streaming")
-    if residency not in ("auto", "hbm"):
-        raise ValueError(f"corpus_residency must be auto|hbm|host, got {residency!r}")
-    arrays = S.pack_training_arrays(providers, device=device)
-    if device.type == "cuda":
-        nbytes = sum(a.nbytes for a in arrays.values() if hasattr(a, "nbytes"))
-        free, _ = torch.cuda.mem_get_info(device)
-        if nbytes > free:
-            raise ValueError(
-                f"training corpus is {nbytes / 1e6:.1f} MB but the card has {free / 1e6:.1f} MB "
-                "free; host streaming (ROADMAP queue item 5) is not ported yet")
-    return S.upload_training_arrays(arrays, device)
-
-
 # config frontend_backend: the JAX package's two in-step frontends (XLA ops
 # or its Pallas kernel); both name the port's one frontend, the CUDA kernel.
 FRONTEND_BACKENDS = ("xla", "pallas")
@@ -322,12 +311,18 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
         packed = feature_handler.pack_training_audio(
             dev, step_ms=int(config.get("window_step_ms", 10)))
     else:
-        packed = _pack_corpus(feature_handler.providers, config, dev)
+        packed = pack_training_with_residency(feature_handler.providers, config, dev)
     spc_cfg = config.get("steps_per_call", "auto")
     # auto: one step per call on the card for now (a CUDA graph of the step
     # is queued in ROADMAP item 11)
     steps_per_call = 1 if spc_cfg in ("auto", None, "") else int(spc_cfg)
     generator = torch.Generator(device=dev).manual_seed(seed)
+    producer = None
+    if isinstance(packed, HostStreamedData):
+        # the host's draws come from a CPU generator seeded like the card's
+        producer = HostBatchProducer(packed, batch_size, features_length, steps_per_call, dev,
+                                     torch.Generator().manual_seed(seed))
+        packed = None
     train_step = make_train_step(bundle, model, packed, batch_size, features_length,
                                  steps_per_call, generator)
     eval_probs = make_eval_fn(bundle)
@@ -337,15 +332,16 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
         refresher = PoolRefresher(feature_handler, packed, refresh_steps).start()
     try:
         return _train_loop(config, feature_handler, restore_checkpoint, model, train_step,
-                           eval_probs, refresher)
+                           eval_probs, refresher, producer)
     finally:
         if refresher is not None:
             refresher.stop()
 
 
 def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
-                train_step: TrainStep, eval_probs, refresher):
-    """train()'s steps, evals and checkpoints; returns (model, history)."""
+                train_step: TrainStep, eval_probs, refresher, producer=None):
+    """train()'s steps, evals and checkpoints; returns (model, history).  With
+    a ``producer`` (host mode) each step's batch comes from it."""
     train_dir = config["train_dir"]
     phases = resolve_schedules(config)
     total_steps = sum(p["steps"] for p in phases)
@@ -421,7 +417,11 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
         room = min(phase_end, next_eval, total_steps) - step
         n = steps_per_call if room >= steps_per_call else 1
         t0 = time.perf_counter()
-        step_metrics = train_step.step(steps=n, **{k: v for k, v in phase.items() if k != "steps"})
+        hyper = {k: v for k, v in phase.items() if k != "steps"}
+        if producer is None:
+            step_metrics = train_step.step(steps=n, **hyper)
+        else:
+            step_metrics = train_step.step_on_batch(*producer(n), **hyper)
         step_times.append((n, time.perf_counter() - t0))
         step += n
         if refresher is not None:

@@ -45,7 +45,7 @@ def binary_metrics(probs: torch.Tensor, labels: torch.Tensor) -> dict:
     tn = torch.sum(~pred & ~pos)
     n = probs.shape[0]
     order = torch.argsort(probs, stable=True)
-    ranks = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=probs.device))
+    ranks = torch.empty_like(order).scatter(0, order, torch.arange(n, device=probs.device))
     n_pos = torch.sum(pos)
     n_neg = n - n_pos
     auc = (torch.sum(torch.where(pos, ranks, 0)) - n_pos * (n_pos - 1) / 2.0) / torch.clamp(

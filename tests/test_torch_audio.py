@@ -8,10 +8,10 @@ both take their scipy/numpy paths.
   every DSP primitive, ``Augmentation`` and ``Clips`` (split, repeat, VAD,
   duration filter) give bit-equal arrays from the same seeds;
 - ``SpectrogramGeneration`` on the CPU (the port's plain frontend) matches
-  JAX's NumPy golden frontend, fed the same int16 samples, to
-  tests/test_frontend_xla.py's tolerance (share of cells off by > 0.5 below
-  0.003, median 0), and ``xla.frontend_batch`` under the Q6 gate, split and
-  slide included.
+  the JAX package's default one (its NumPy golden frontend; both truncate
+  float clips to int16) to tests/test_frontend_xla.py's tolerance (share of
+  cells off by > 0.5 below 0.003, median 0), and ``xla.frontend_batch`` on
+  the truncated samples under the Q6 gate, split and slide included.
 """
 
 import jax.numpy as jnp
@@ -27,7 +27,6 @@ from microwakeword_tpu.audio import dsp as JD
 from microwakeword_tpu.audio import io as JIO
 from microwakeword_tpu.audio import spectrograms as JSG
 from microwakeword_tpu.audio import vad as JV
-from microwakeword_tpu.frontend import generate_features_for_clip
 from microwakeword_tpu.frontend import xla as JX
 from microwakeword_tpu_torch.audio import augmentation as A
 from microwakeword_tpu_torch.audio import clips as C
@@ -36,6 +35,7 @@ from microwakeword_tpu_torch.audio import io as IO
 from microwakeword_tpu_torch.audio import spectrograms as SG
 from microwakeword_tpu_torch.audio import vad as V
 from microwakeword_tpu_torch.frontend import gate
+from microwakeword_tpu_torch.frontend.plain import float_pcm_to_int16
 
 torch.set_num_threads(2)
 
@@ -201,15 +201,10 @@ def test_spectrogram_generation_matches_jax(wavs, sg_kw):
                                    background_paths=[str(wavs / "bg")])
         return sg_mod.SpectrogramGeneration(clips, aug, **sg_kw, **extra)
 
-    # The golden truncates float samples to int16 (astype); xla.py and the
-    # port round them (xla.py:252-254).  Fed the rounded samples it is the
-    # reference of both: on the float clips themselves xla.frontend_batch
-    # differs from it as much as the port does.
-    def golden(audio):
-        pcm = np.round(np.clip(audio * np.float32(32768.0), -32768.0, 32767.0)).astype(np.int16)
-        return generate_features_for_clip(pcm, sg_kw["step_ms"])
-
-    want = list(make(JA, JC, JSG, frontend=golden).spectrogram_generator())
+    # The JAX default frontend (the golden, generate_features_for_clip)
+    # truncates float samples to int16 (reference.py:220), and so does the
+    # port's SpectrogramGeneration.frontend (plain.float_pcm_to_int16).
+    want = list(make(JA, JC, JSG).spectrogram_generator())
     got = list(make(A, C, SG, device="cpu").spectrogram_generator())
     assert len(got) == len(want) >= 7
     d = np.concatenate([np.abs(g - w).ravel() for g, w in zip(got, want)
@@ -223,7 +218,7 @@ def test_spectrogram_generation_matches_jax(wavs, sg_kw):
     sg = SG.SpectrogramGeneration(clips, aug, **sg_kw, device="cpu")
     xla = [v for clip in aug.augment_generator(clips.audio_generator())
            for v in sg.postprocess(np.asarray(JX.frontend_batch(
-               jnp.asarray(clip)[None], step_ms=sg_kw["step_ms"]))[0])]
+               jnp.asarray(float_pcm_to_int16(clip))[None], step_ms=sg_kw["step_ms"]))[0])]
     assert len(xla) == len(got)
     gate.assert_q6_gate(np.concatenate(got), np.concatenate(xla))
 

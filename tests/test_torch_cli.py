@@ -244,6 +244,57 @@ def test_cli_flags_not_ported_raise(store, extra, item):
                   "--train", "0"] + extra + MODEL_FLAGS)
 
 
+def _sweep_config(root, config, name):
+    """The store's YAML with its own train_dir and one step per call."""
+    path = root / f"{name}.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(config, train_dir=str(root / name), steps_per_call=1), f)
+    return str(path)
+
+
+def test_sweep_cli(store):
+    """python -m microwakeword_tpu_torch.sweep on the CPU: a member directory
+    of loadable weights each, the JAX sweep's leaderboard keys and order of
+    fields, sweep_config.yaml; --mesh 2 raises (ROADMAP queue item 10)."""
+    from microwakeword_tpu import sweep as jax_sweep
+    from microwakeword_tpu_torch import sweep
+
+    root, config = store
+    common = ["--n_models", "3", "--steps", "6", "--seeds", "4,5", "--learning_rates",
+              "0.01,0.005"]
+    assert jax_sweep.main(["--training_config", _sweep_config(root, config, "jax_sweep"),
+                           "--mesh", "off"] + common + MODEL_FLAGS) == 0
+    assert sweep.main(["--training_config", _sweep_config(root, config, "sweep"), "--device",
+                       "cpu"] + common + MODEL_FLAGS) == 0
+    with open(root / "jax_sweep" / "leaderboard.json") as f:
+        want = json.load(f)
+    with open(root / "sweep" / "leaderboard.json") as f:
+        got = json.load(f)
+    assert len(got) == 3 and sorted(row["member"] for row in got) == [0, 1, 2]
+    assert [list(row) for row in got] == [list(row) for row in want]
+    assert [sorted(row["metrics"]) for row in got] == [sorted(row["metrics"]) for row in want]
+    with open(root / "sweep" / "sweep_config.yaml") as f:
+        recorded = yaml.safe_load(f)
+    with open(root / "jax_sweep" / "sweep_config.yaml") as f:
+        assert recorded == yaml.safe_load(f)
+    assert recorded["seeds"] == [4, 5, 4] and recorded["steps"] == 6
+    flags = sweep.build_parser().parse_args(["--training_config", "unused.yaml"] + MODEL_FLAGS)
+    derived = derive_config(config, CLI.model_config_from_flags(flags))
+    bundle = build_model("mixednet", derived["model_config"])
+    x = torch.rand(4, derived["spectrogram_length"], 40) * 20
+    probs = []
+    for i in range(3):
+        model = T.load_weights(bundle, str(root / "sweep" / f"member_{i:02d}" / "best_weights.pt"),
+                               device="cpu")
+        with torch.no_grad():
+            probs.append(bundle.forward(model, x))
+    assert all(bool(torch.isfinite(p).all()) for p in probs)
+    assert not torch.equal(probs[0], probs[1])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sweep.main(["--training_config", _sweep_config(root, config, "sweep_mesh"), "--device",
+                    "cpu", "--mesh", "2"] + common + MODEL_FLAGS)
+
+
 INCEPTION_FLAGS = ["inception", "--cnn1_filters", "8", "--cnn1_kernel_sizes", "3",
                    "--cnn1_subspectral_groups", "4", "--cnn2_filters1", "6,8",
                    "--cnn2_filters2", "8,8", "--cnn2_kernel_sizes", "3,3",
@@ -287,11 +338,13 @@ def test_inception_raises(store, tmp_path):
 
 
 def test_train_options_not_ported_raise(trained, tmp_path):
+    """A mesh of more than one device is not ported (host streaming, which
+    raised here before, trains: tests/test_torch_host_stream.py)."""
     _, config, _ = trained
-    config = dict(config, train_dir=str(tmp_path / "run"), corpus_residency="host")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    config = dict(config, train_dir=str(tmp_path / "run"))
+    with pytest.raises(NotImplementedError, match="item 10"):
         T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
-                device="cpu")
+                device="cpu", mesh=2)
 
 
 @pytest.mark.parametrize("option,match", [

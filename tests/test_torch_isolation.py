@@ -41,6 +41,9 @@ from microwakeword_tpu_torch.export import native_quant, native_runtime
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import MixedNetConfig, build_model, presets
 from microwakeword_tpu_torch.train import loop
+from microwakeword_tpu_torch import sweep
+from microwakeword_tpu_torch.data import host_stream
+from microwakeword_tpu_torch.parallel import population
 bundle = build_model("mixednet", presets.flagship_config())
 model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
 state = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -70,6 +73,13 @@ config = derive_config({
 small = build_model("mixednet", config["model_config"])
 _, history = loop.train(small, config, FeatureHandler(config), device="cpu")
 assert [r["step"] for r in history] == [2], history
+host = dict(config, corpus_residency="host", train_dir=os.path.join(root, "host"))
+_, history = loop.train(small, host, FeatureHandler(host), device="cpu")
+assert [r["step"] for r in history] == [2], history
+packed = sampler.pack_training_data(FeatureHandler(config).providers, "cpu")
+stacked, history = population.train_population(small, packed, 2, 2, 4, config["spectrogram_length"],
+                                               device="cpu")
+assert history[-1]["loss"].shape == (2,), history
 added = set(sys.modules) - before
 print(json.dumps(sorted(added)))
 """
@@ -90,7 +100,8 @@ def test_import_and_predict_load_no_jax():
     assert "microwakeword_tpu_torch" in added
     for name in ("train.loop", "build_dataset", "data.refresh", "audio.io", "audio.vad", "audio.dsp",
                  "audio.augmentation", "audio.clips", "audio.spectrograms", "models.inception",
-                 "export.native_runtime", "export.native_quant", "native"):
+                 "export.native_runtime", "export.native_quant", "native", "data.host_stream",
+                 "parallel.population", "sweep"):
         assert f"microwakeword_tpu_torch.{name}" in added, name
     assert [m for m in added if _forbidden(m)] == []
     assert "yaml" not in added  # only the CLI's main() reads YAML
@@ -109,6 +120,15 @@ def test_scan_covers_the_audio_path():
     for name in ("audio/io.py", "audio/vad.py", "audio/dsp.py", "audio/augmentation.py",
                  "audio/clips.py", "audio/spectrograms.py", "build_dataset.py", "data/refresh.py",
                  "data/store.py", "data/sampler.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
+
+
+def test_scan_covers_the_population_path():
+    """The scan below reaches population training, the sweep CLI and host
+    streaming."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("parallel/__init__.py", "parallel/population.py", "sweep.py",
+                 "data/host_stream.py"):
         assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
@@ -186,6 +206,22 @@ def test_train_and_run_default_to_cuda(monkeypatch, tmp_path):
         ["--training_config", "unused.yaml", "--device", "cpu", "--train", "0", "mixednet"])
     with pytest.raises(ValueError, match="not trained"):  # the CPU gets past the device check
         CLI.run(flags, config)
+    # the sweep CLI, population training and the host producer
+    from microwakeword_tpu_torch import sweep
+    from microwakeword_tpu_torch.data.host_stream import HostBatchProducer
+    from microwakeword_tpu_torch.parallel import population
+
+    sweep_flags = sweep.build_parser().parse_args(["--training_config", "unused.yaml", "mixednet"])
+    assert sweep_flags.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.run(sweep_flags, config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        population.train_population(bundle, None, 2, 1, 4, 204)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        population.init_population(bundle, [0, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HostBatchProducer(None, 4, 204)
+    assert population.init_population(bundle, [0, 1], "cpu")["Dense_0.weight"].shape[0] == 2
 
 
 def test_audio_entry_points_default_to_cuda(monkeypatch, tmp_path):
