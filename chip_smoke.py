@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving, training, export, sweep and host-streaming paths on one CUDA card.
+"""Drives the port's serving, training, export, sweep and host I/O paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,9 +9,10 @@ printing its own lines; any failure exits non-zero:
 
 1. the card: its name, and its name and power limit as nvidia-smi gives them;
 2. build: compiles the frontend kernel from csrc/frontend.cu and prints the
-   seconds and the compiler's register/spill report; meanwhile, on a second
-   thread, g++ builds the C++ streaming runtime from native/src/mww_runtime.cc
-   (its seconds are printed too);
+   seconds and the compiler's register/spill report; meanwhile, on two more
+   threads, g++ builds the C++ streaming runtime from native/src/mww_runtime.cc
+   and the host I/O library from native/src/mww_native.cc (their seconds are
+   printed too);
 3. the kernel against its plain version on the card, TF32 off, under the Q6
    gate (frontend/gate.py);
 4. the main path at the flagship MixedNet's full width (random weights from
@@ -63,8 +64,9 @@ printing its own lines; any failure exits non-zero:
    launches per train step; holds one step's in-step features against the
    plain frontend on the same gathered windows (Q6 gate); times the step as
    phase 6 does, with the frontend kernel's device time per step; run() gets
-   ``--export_native 0`` here and in phase 10, so that the launch checks
-   count the steps' launches alone (phase 13 checks the export);
+   ``--export_native 0 --export_stablehlo 0`` here and in phase 10, so that
+   the launch checks and times count the steps alone (phases 13 and 16 check
+   the exports);
 10. mixed training with pool refresh through ``run()``: clips-type
    positives and phase 6's mmap negatives, the pool refreshed every 50 steps
    (blocking); checks the launches, the swaps and the training; times the
@@ -111,8 +113,25 @@ printing its own lines; any failure exits non-zero:
    10 host-mode steps under the sync check (only a wait on a pinned
    buffer's copy event is allowed, and counted); ``corpus_residency: auto``
    with ``MWW_CORPUS_HBM_BUDGET`` below the corpus's bytes picks host and
-   prints the notice;
-16. a JSON line of the kernels, then the last line
+   prints the notice; (the sweep CLI of phase 14 exports nothing, so it
+   takes no export flag);
+16. the exported programs on the card, for phase 6's flagship and phase
+   12's Inception, whose ``run()`` wrote torch_export/model.mwwt
+   (``--export_stablehlo`` defaults to 1): loaded on the card (TF32 off),
+   ``forward`` at batches 1 and 7 against the module (1e-5), 500 exported
+   ``stream_step``s of a test ambient track against ``stream_scan`` (2e-4),
+   ``Model.from_exported(...).predict_clip`` on one 10 s stream (exactly 3
+   frontend launches) against ``Model.from_torch``'s; ms per exported step
+   beside the eager step by CUDA events, kernels per step under the
+   profiler;
+17. the native host I/O (native/src/mww_native.cc, built by g++ in phase
+   2): phase 8's WAVs decoded natively against scipy (exact), a 60 s
+   44.1 kHz signal resampled to 16 kHz against scipy (2e-4), the VAD
+   against its NumPy version (1e-6); host ms per audio-second of decode and
+   resampling, native and scipy.  TFLite is not driven on the card: its
+   machine has no TensorFlow (tests/test_torch_tflite.py and
+   tests/test_torch_cli.py hold it on the CPU);
+18. a JSON line of the kernels, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -133,9 +152,12 @@ import time
 
 import numpy as np
 import torch
+from scipy.signal import resample_poly
 
-from microwakeword_tpu_torch import _build, build_dataset, sweep
+from microwakeword_tpu_torch import _build, build_dataset, native, sweep
 from microwakeword_tpu_torch import model_train_eval as CLI
+from microwakeword_tpu_torch.audio import io as audio_io
+from microwakeword_tpu_torch.audio import vad
 from microwakeword_tpu_torch.audio.augmentation import Augmentation
 from microwakeword_tpu_torch.audio.clips import Clips
 from microwakeword_tpu_torch.audio.io import save_clip
@@ -146,6 +168,7 @@ from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.evaluate import roc, streaming_eval
+from microwakeword_tpu_torch.export.torch_export import ExportedModel
 from microwakeword_tpu_torch.frontend import constants as FC
 from microwakeword_tpu_torch.frontend import gate, kernel, plain
 from microwakeword_tpu_torch.frontend.ab import cuda_ms, queued_ms
@@ -243,6 +266,15 @@ POP_TIMED_STEPS = 20
 INCEPTION_POP = (4, 20)
 # Phase 15: host streaming, 200 steps (eval every 100) through train().
 HOST_STEPS = [200]
+# Phase 16: the exported programs on the card
+EXPORTED_ATOL = 1e-5  # forward of the loaded program vs the module (one card, one dtype)
+EXPORTED_STEPS = 500  # streamed steps of a test ambient track, held to STREAM_ATOL
+EXPORTED_TIMED_STEPS = 100
+EXPORTED_PROFILED_STEPS = 20
+# Phase 17: the native host I/O
+RESAMPLE_ATOL = 2e-4  # native vs scipy resampling (tests/test_native.py)
+VAD_ATOL = 1e-6  # native (float32) vs NumPy (float64) VAD (tests/test_native.py)
+RESAMPLE_S, RESAMPLE_RATE = 60, 44100  # seconds of 44.1 kHz audio resampled to 16 kHz
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -821,7 +853,7 @@ def phase_raw_audio(dev: torch.device, smi: str, seed: int, root: str, built: di
                 mmap_feature(os.path.join(stores, "neg"), False, 10.0, "random")]
     flags, config, out, wall, peak, launches = audio_run(
         dev, root, seed, "raw_audio", RAW_STEPS, features,
-        ["--test_tf_nonstreaming", "1", "--export_native", "0"])
+        ["--test_tf_nonstreaming", "1", "--export_native", "0", "--export_stablehlo", "0"])
     steps = sum(RAW_STEPS)
     history, length, batch = out["history"], config["spectrogram_length"], config["batch_size"]
     check(launches == kernel.LAUNCHES_PER_CALL * steps,
@@ -900,7 +932,8 @@ def phase_mixed(dev: torch.device, smi: str, seed: int, root: str, built: dict,
                 mmap_feature(os.path.join(spectrogram_root, "neg"), False, 10.0, "random"),
                 mmap_feature(os.path.join(built["stores"], "pos"), True, 2.0, "truncate_start")]
     flags, config, out, wall, peak, launches = audio_run(
-        dev, root, seed, "mixed", MIXED_STEPS, features, ["--test_streaming", "0", "--export_native", "0"],
+        dev, root, seed, "mixed", MIXED_STEPS, features,
+        ["--test_streaming", "0", "--export_native", "0", "--export_stablehlo", "0"],
         eval_step_interval=REFRESH_STEPS, pool_refresh_steps=REFRESH_STEPS,
         pool_refresh_blocking=True)
     steps, history = sum(MIXED_STEPS), out["history"]
@@ -1501,6 +1534,167 @@ def phase_host_stream(dev: torch.device, smi: str, seed: int, root: str, spectro
     return dict(wall=wall, times=times, draw_ms=draw_ms)
 
 
+def phase_exported(dev: torch.device, smi: str, runs: list, pcm_np: np.ndarray) -> dict:
+    """Phase 16: for each (label, bundle, config, run() result, hop ms) the
+    ``torch_export/model.mwwt`` that run() wrote (``--export_stablehlo``
+    defaults to 1), loaded on the card (TF32 off): ``forward`` at batches 1
+    and 7 against ``bundle.forward`` to EXPORTED_ATOL; ``stream_step`` over
+    the first EXPORTED_STEPS steps of a test ambient track against
+    ``stream_scan`` to STREAM_ATOL; ``Model.from_exported(...).predict_clip``
+    on one 10 s stream (the frontend kernel's launch count set to 0 before
+    and read after: exactly 3) against ``Model.from_torch``'s; ms per
+    exported ``stream_step`` beside the eager step by CUDA events, and
+    kernels per step under the profiler.  Returns {label: numbers}."""
+    results = {}
+    for label, bundle, config, out, step_ms in runs:
+        path = out["exported"]
+        check(path is not None and os.path.exists(path), f"{label}: run() exported {path}")
+        model = training.load_weights(bundle, os.path.join(config["train_dir"], "best_weights.pt"),
+                                      dev)
+        t0 = time.perf_counter()
+        exported = ExportedModel(path, dev)
+        load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(7)
+        fwd_err = 0.0
+        with torch.no_grad():
+            for b in (1, 7):
+                x = torch.from_numpy(rng.uniform(0, 26, (b, bundle.spectrogram_length, 40))
+                                     .astype(np.float32)).to(dev)
+                got = exported.forward(x)
+                check(got.shape == (b, 1), f"{label}: exported forward {tuple(got.shape)}")
+                fwd_err = max(fwd_err, float((got - bundle.forward(model, x)).abs().max()))
+        check(fwd_err <= EXPORTED_ATOL, f"{label}: exported forward max|d| {fwd_err}")
+
+        tracks, _, _ = FeatureHandler(config, dev).get_data(
+            "testing_ambient", config["batch_size"], config["spectrogram_length"], "none")
+        track = max(tracks, key=len)
+        steps = min(EXPORTED_STEPS, len(track) // bundle.stride)
+        x = torch.from_numpy(np.asarray(track[: steps * bundle.stride], np.float32))[None].to(dev)
+        with torch.no_grad():
+            want = bundle.stream_scan(model, x).reshape(-1)
+            cache, got = exported.stream_init(), []
+            for i in range(steps):
+                p, cache = exported.stream_step(cache, x[:, i * bundle.stride : (i + 1) * bundle.stride])
+                got.append(p[0, 0])
+            step_err = float((torch.stack(got) - want).abs().max())
+        check(step_err <= STREAM_ATOL, f"{label}: exported stream_step vs stream_scan {step_err}")
+
+        clip = pcm_np[0]
+        kernel.frontend_batch.launches = 0
+        probs = Model.from_exported(path, dev).predict_clip(clip, step_ms)
+        launches = kernel.frontend_batch.launches
+        check(launches == kernel.LAUNCHES_PER_CALL,
+              f"{label}: from_exported predict_clip launched the frontend kernel {launches} times")
+        ref = Model.from_torch(bundle, model.state_dict(), dev).predict_clip(clip, step_ms)
+        clip_err = float(np.abs(probs - ref).max())
+        check(probs.shape == ref.shape and len(probs) > 0 and clip_err <= CLIP_ATOL,
+              f"{label}: from_exported vs from_torch predict_clip max|d| {clip_err}")
+
+        frames = x[:, : bundle.stride]
+        loops = {"exported": exported.stream_step,
+                 "eager": lambda c, f: bundle.stream_step(model, c, f)}
+        times, kernels = {}, {}
+        with torch.no_grad():
+            for kind, step in loops.items():
+                state = {"cache": exported.stream_init()}
+
+                def one(step=step, state=state):
+                    _, state["cache"] = step(state["cache"], frames)
+
+                times[kind] = events_ms(one, EXPORTED_TIMED_STEPS)
+                prof = device_profile(lambda one=one: [one() for _ in range(EXPORTED_PROFILED_STEPS)])
+                kernels[kind] = (prof[3] / EXPORTED_PROFILED_STEPS, prof[1] / EXPORTED_PROFILED_STEPS,
+                                 prof[1] / prof[0] if prof[0] else 0.0)
+        print(f"phase 16 {label}: model.mwwt {os.path.getsize(path):,} B loaded on the card in "
+              f"{load_s:.2f} s; forward at batches 1 and 7 vs the module max|d| {fwd_err:.3e} "
+              f"(atol {EXPORTED_ATOL}); {steps} exported stream_steps of a test ambient track vs "
+              f"stream_scan max|d| {step_err:.3e} (atol {STREAM_ATOL}); Model.from_exported "
+              f"predict_clip on one {len(clip) / FC.SAMPLE_RATE:.0f} s stream at {step_ms} ms: "
+              f"{len(probs)} steps, frontend launches {launches}, vs from_torch max|d| "
+              f"{clip_err:.3e} ({smi})", flush=True)
+        for kind in loops:
+            ms, host_ms = times[kind]
+            n, dev_ms, busy = kernels[kind]
+            print(f"phase 16 {label} {kind} stream_step: {ms:.4f} ms per step by CUDA events over "
+                  f"{EXPORTED_TIMED_STEPS} steps (host clock {host_ms:.4f} ms); {n:.1f} kernels "
+                  f"and {dev_ms:.4f} device ms per step, busy share {busy:.4f} under the profiler "
+                  f"({EXPORTED_PROFILED_STEPS} steps) ({smi})", flush=True)
+        results[label] = dict(forward_max_abs=fwd_err, step_max_abs=step_err, clip_max_abs=clip_err,
+                              launches=launches, step_ms={k: v[0] for k, v in times.items()},
+                              kernels_per_step={k: v[0] for k, v in kernels.items()})
+    return results
+
+
+def phase_native_io(smi: str, native_build: dict, wav_root: str, seed: int) -> dict:
+    """Phase 17: the host I/O library (native/src/mww_native.cc, built by
+    g++ in phase 2): phase 8's WAVs decoded natively against scipy (16 kHz
+    int16: exact); a RESAMPLE_S s RESAMPLE_RATE Hz signal resampled to 16 kHz
+    natively against scipy.signal.resample_poly (RESAMPLE_ATOL); the VAD
+    against its NumPy version on phase 8's positives (VAD_ATOL, equal
+    lengths); host ms per audio-second of decode and of resampling, native
+    and scipy (the host's clock, not the card).  TFLite is not driven here:
+    the card's machine has no TensorFlow; tests/test_torch_tflite.py and
+    tests/test_torch_cli.py hold the TFLite export on the CPU."""
+    paths = sorted(glob.glob(os.path.join(wav_root, "*", "*.wav")))
+    decode = {"native": 0.0, "scipy": 0.0}
+    decode_err, audio_s = 0.0, 0.0
+    for path in paths:
+        t0 = time.perf_counter()
+        got = audio_io.load_audio(path)
+        decode["native"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = audio_io.load_audio_plain(path)
+        decode["scipy"] += time.perf_counter() - t0
+        check(got.shape == want.shape, f"{path}: native {got.shape} vs scipy {want.shape}")
+        decode_err = max(decode_err, float(np.abs(got - want).max()))
+        audio_s += len(got) / FC.SAMPLE_RATE
+    check(decode_err == 0.0, f"native WAV decode vs scipy max|d| {decode_err}")
+
+    rng = np.random.default_rng(seed + 200)
+    t = np.arange(RESAMPLE_S * RESAMPLE_RATE) / RESAMPLE_RATE
+    signal = (0.3 * np.sin(2 * np.pi * 440.0 * t) + 0.05 * rng.standard_normal(len(t))).astype(
+        np.float32)
+    g = math.gcd(FC.SAMPLE_RATE, RESAMPLE_RATE)
+    up, down = FC.SAMPLE_RATE // g, RESAMPLE_RATE // g
+    resample = {}
+    t0 = time.perf_counter()
+    got = native.resample_poly(signal, up, down)
+    resample["native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = resample_poly(signal, up, down).astype(np.float32)
+    resample["scipy"] = time.perf_counter() - t0
+    check(got.shape == want.shape, f"resample {got.shape} vs scipy {want.shape}")
+    resample_err = float(np.abs(got - want).max())
+    check(resample_err <= RESAMPLE_ATOL, f"native resample vs scipy max|d| {resample_err}")
+
+    vad_err, kept, total = 0.0, 0, 0
+    for path in paths[:50]:
+        audio = audio_io.load_audio(path)
+        got, want = vad.remove_silence(audio), vad.remove_silence_plain(audio)
+        check(got.shape == want.shape, f"{path}: VAD kept {got.shape} vs NumPy {want.shape}")
+        if len(got):
+            vad_err = max(vad_err, float(np.abs(got - want).max()))
+        kept, total = kept + len(got), total + len(audio)
+    check(vad_err <= VAD_ATOL, f"native VAD vs NumPy max|d| {vad_err}")
+    print(f"phase 17 g++ build of native/src/mww_native.cc: {native_build['path'].name} in "
+          f"{native_build['s']:.2f} s (host, beside nvcc in phase 2)")
+    print(f"phase 17 decode of {len(paths)} WAVs ({audio_s:.1f} audio-s) native vs scipy max|d| "
+          f"{decode_err}; host ms per audio-second: native {decode['native'] * 1e3 / audio_s:.4f}, "
+          f"scipy {decode['scipy'] * 1e3 / audio_s:.4f}; resample {RESAMPLE_S} s at "
+          f"{RESAMPLE_RATE} Hz to 16 kHz ({up}/{down}) native vs scipy max|d| {resample_err:.3e} "
+          f"(atol {RESAMPLE_ATOL}); host ms per audio-second: native "
+          f"{resample['native'] * 1e3 / RESAMPLE_S:.4f}, scipy "
+          f"{resample['scipy'] * 1e3 / RESAMPLE_S:.4f}; VAD on {min(len(paths), 50)} clips vs "
+          f"NumPy max|d| {vad_err:.3e} (atol {VAD_ATOL}), kept {kept} of {total} samples "
+          f"(host clock, not the card) ({smi})")
+    print("phase 17 TFLite is not driven on the card: its machine has no TensorFlow; "
+          "tests/test_torch_tflite.py and tests/test_torch_cli.py hold the TFLite export and "
+          "the ESPHome manifest on the CPU", flush=True)
+    return dict(decode_ms_per_audio_s={k: v * 1e3 / audio_s for k, v in decode.items()},
+                resample_ms_per_audio_s={k: v * 1e3 / RESAMPLE_S for k, v in resample.items()},
+                build_s=native_build["s"], resample_max_abs=resample_err, vad_max_abs=vad_err)
+
+
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
     """Seeded noise at a per-stream level plus 0.4 s tone bursts, int16."""
     t = np.arange(samples) / FC.SAMPLE_RATE
@@ -1593,19 +1787,23 @@ def main() -> int:
     print(f"phase 1 card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
 
-    # 2. build the kernel; the C++ runtime on a second thread meanwhile
-    runtime_build = {}
+    # 2. build the kernel; the C++ runtime and the host I/O library on two
+    # more threads meanwhile
+    runtime_build, native_build = {}, {}
 
-    def build_runtime():
+    def gxx_build(builder, into: dict):
         t = time.perf_counter()
         try:
-            runtime_build["path"] = _build.build_runtime()[0]
+            into["path"] = builder()[0]
         except Exception as e:  # noqa: BLE001 - reported after the join
-            runtime_build["error"] = e
-        runtime_build["s"] = time.perf_counter() - t
+            into["error"] = e
+        into["s"] = time.perf_counter() - t
 
-    gxx = threading.Thread(target=build_runtime)
-    gxx.start()
+    gxx = [threading.Thread(target=gxx_build, args=(builder, into))
+           for builder, into in ((_build.build_runtime, runtime_build),
+                                 (_build.build_native, native_build))]
+    for thread in gxx:
+        thread.start()
     t0 = time.perf_counter()
     path, report = _build.build("frontend")
     print(f"phase 2 build csrc/frontend.cu: {path.name}")
@@ -1613,10 +1811,14 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             print(f"  {ln.strip()}")
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s", flush=True)
-    gxx.join()
+    for thread in gxx:
+        thread.join()
     check("error" not in runtime_build, f"g++ build of the runtime: {runtime_build.get('error')}")
+    check("error" not in native_build, f"g++ build of the host I/O library: "
+                                       f"{native_build.get('error')}")
     print(f"phase 2 g++ build of native/src/mww_runtime.cc: {runtime_build['path'].name} in "
-          f"{runtime_build['s']:.2f} s (host)", flush=True)
+          f"{runtime_build['s']:.2f} s, of native/src/mww_native.cc: {native_build['path'].name} "
+          f"in {native_build['s']:.2f} s (host)", flush=True)
 
     # 3. kernel against plain on the card
     rng = np.random.default_rng(args.seed)
@@ -1796,8 +1998,16 @@ def main() -> int:
         swept = phase_population(dev, smi, args.seed, work, spectrograms)
         mark(15)
         streamed = phase_host_stream(dev, smi, args.seed, work, spectrograms)
+        # 16. the exported programs on the card; 17. the native host I/O
+        mark(16)
+        served = phase_exported(dev, smi, [
+            ("flagship", bundle, flagship_config, flagship_out, STEP_MS),
+            ("inception", inception["bundle"], inception["config"], inception["out"],
+             INCEPTION_STEP_MS)], pcm_np)
+        mark(17)
+        host_io = phase_native_io(smi, native_build, built["wav_root"], args.seed)
 
-    # 16. the kernels line, then the last line
+    # 18. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
@@ -1822,6 +2032,10 @@ def main() -> int:
         population_member_steps_per_s={k: v["member_steps_per_s"] for k, v in swept["rates"].items()},
         host_stream_step_ms=streamed["times"]["host"][0],
         resident_step_ms=streamed["times"]["resident"][0],
+        launches_exported_predict_clip={k: v["launches"] for k, v in served.items()},
+        exported_stream_step_ms={k: v["step_ms"] for k, v in served.items()},
+        native_decode_ms_per_audio_s=host_io["decode_ms_per_audio_s"],
+        native_resample_ms_per_audio_s=host_io["resample_ms_per_audio_s"],
     )]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

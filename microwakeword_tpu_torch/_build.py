@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface under ``_build/`` (listed in ``.gitignore``), named by a hash
 of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The C++ streaming runtime, the repo's standalone
-``native/src/mww_runtime.cc``, is compiled the same way by ``g++``
-(``build_runtime``).  Nothing is built when a module is imported: the
-wrappers call ``load`` or ``load_runtime`` inside the function that needs
-the library.
+one is loaded as it is.  The repo's two standalone C++ sources are compiled
+the same way by ``g++``: the streaming runtime ``native/src/mww_runtime.cc``
+(``build_runtime``) and the host I/O library ``native/src/mww_native.cc``
+(``build_native``: window gather, WAV decode and encode, resampler, VAD).
+Nothing is built when a module is imported: the wrappers call ``load``,
+``load_runtime`` or ``load_native`` inside the function that needs the
+library.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 RUNTIME_SRC = _PKG.parent / "native" / "src" / "mww_runtime.cc"
+NATIVE_SRC = _PKG.parent / "native" / "src" / "mww_native.cc"
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+# the gather runs on std::thread workers
+NATIVE_GXX_FLAGS = (*GXX_FLAGS, "-pthread")
 
 # --fmad=false: expressions round operation by operation, like PyTorch's
 # eager ops; the kernels call fmaf where they want a fused multiply-add.
@@ -81,23 +86,41 @@ def build(name: str) -> tuple[Path, str]:
     return out, _compile([nvcc_path(), *NVCC_FLAGS], CSRC / f"{name}.cu", out)
 
 
-def runtime_library_path() -> Path:
-    digest = hashlib.sha256(RUNTIME_SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libmww_runtime_{digest.hexdigest()[:16]}.so"
+def _gxx_library_path(src: Path, flags: tuple, stem: str) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build_runtime() -> tuple[Path, str]:
-    """Compiles the C++ streaming runtime (``native/src/mww_runtime.cc``,
-    C interface, standard headers only) with ``g++`` unless its library
-    exists; returns (library path, the compiler's report).  There is no
-    fallback: without ``g++`` or the source this raises."""
-    out = runtime_library_path()
+def _gxx_build(src: Path, flags: tuple, stem: str) -> tuple[Path, str]:
+    """Compiles the standalone C++ source ``src`` (C interface, standard
+    headers only) with ``g++`` unless its library exists; returns (library
+    path, the compiler's report).  There is no fallback: without ``g++`` or
+    the source this raises."""
+    out = _gxx_library_path(src, flags, stem)
     if out.exists():
         return out, ""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the C++ streaming runtime is built from source")
-    return out, _compile([gxx, *GXX_FLAGS], RUNTIME_SRC, out)
+        raise RuntimeError(f"g++ not found: {src.name} is built from source")
+    return out, _compile([gxx, *flags], src, out)
+
+
+def runtime_library_path() -> Path:
+    return _gxx_library_path(RUNTIME_SRC, GXX_FLAGS, "mww_runtime")
+
+
+def build_runtime() -> tuple[Path, str]:
+    """Builds the C++ streaming runtime (``native/src/mww_runtime.cc``)."""
+    return _gxx_build(RUNTIME_SRC, GXX_FLAGS, "mww_runtime")
+
+
+def native_library_path() -> Path:
+    return _gxx_library_path(NATIVE_SRC, NATIVE_GXX_FLAGS, "mww_native")
+
+
+def build_native() -> tuple[Path, str]:
+    """Builds the host I/O library (``native/src/mww_native.cc``)."""
+    return _gxx_build(NATIVE_SRC, NATIVE_GXX_FLAGS, "mww_native")
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,4 +134,11 @@ def load(name: str) -> ctypes.CDLL:
 def load_runtime() -> ctypes.CDLL:
     """Builds (if needed) and loads the C++ streaming runtime."""
     path, _ = build_runtime()
+    return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def load_native() -> ctypes.CDLL:
+    """Builds (if needed) and loads the host I/O library."""
+    path, _ = build_native()
     return ctypes.CDLL(str(path))

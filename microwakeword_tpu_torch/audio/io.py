@@ -1,10 +1,12 @@
 """Audio file IO: decode to 16 kHz mono float32 (-1..1) (port of
 ``microwakeword_tpu/audio/io.py``).
 
-WAV files are read with the stdlib/scipy stack, as the JAX package does when
-its native decoder is not built; other formats fall back to HF ``datasets``
-(soundfile/soxr) when installed.  The native WAV decoder and resampler
-(``native/``) are not bound to the port.
+WAV files go through the native decoder and resampler
+(``native/src/mww_native.cc``, bound in ``native.py``), as in the JAX package;
+a WAV codec that decoder does not read (ADPCM, for one) goes to scipy, the
+reference's format rule.  Other formats fall back to HF ``datasets``
+(soundfile/soxr) when installed.  ``load_audio_plain`` is the scipy version
+of the WAV path, which the tests hold the native one against.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from math import gcd
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+from microwakeword_tpu_torch import native
 
 SAMPLE_RATE = 16000
 
@@ -41,6 +45,19 @@ def load_audio(path: str, target_rate: int = SAMPLE_RATE) -> np.ndarray:
         ds = datasets.Dataset.from_dict({"audio": [path]}).cast_column(
             "audio", datasets.Audio(sampling_rate=target_rate))
         return np.asarray(ds[0]["audio"]["array"], dtype=np.float32)
+    try:
+        data, rate = native.wav_read_mono_f32(path)
+    except ValueError:  # a codec the native decoder does not read
+        return load_audio_plain(path, target_rate)
+    if rate != target_rate:
+        g = gcd(rate, target_rate)
+        data = native.resample_poly(data, target_rate // g, rate // g)
+    return data
+
+
+def load_audio_plain(path: str, target_rate: int = SAMPLE_RATE) -> np.ndarray:
+    """A WAV file as 16 kHz mono float32 through scipy: decode, channel mean,
+    ``scipy.signal.resample_poly``."""
     rate, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0

@@ -1,17 +1,21 @@
 """Voice-activity-based silence trimming (port of
-``microwakeword_tpu/audio/vad.py``, its NumPy path).
+``microwakeword_tpu/audio/vad.py``).
 
 The reference uses webrtcvad (C++) at its least aggressive setting to trim
 silence during data prep (audio_utils.py:99-140).  This is an adaptive-energy
 VAD with the same interface and frame semantics (30 ms frames, always keep the
 first ``min_start`` samples, concatenate voiced frames), used only in offline
-data prep.  The JAX package's native version (``native/``) is not bound to
-the port.
+data prep.  ``remove_silence`` runs the native version
+(``native/src/mww_native.cc``, in float32), as the JAX package does;
+``remove_silence_plain`` is the NumPy one (float64), which the tests hold it
+against.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from microwakeword_tpu_torch import native
 
 NOISE_FLOOR_MULTIPLIER = 1.75  # see remove_silence docstring
 
@@ -45,11 +49,28 @@ def remove_silence(
     keeping extra noise frames is not.
     """
     float_type = audio_data.dtype in (np.float32, np.float64)
-    audio = (
-        audio_data.astype(np.float64)
-        if float_type
-        else audio_data.astype(np.float64) / 32768.0
-    )
+    audio = _as_float64(audio_data, float_type)
+    out = native.remove_silence_f32(audio.astype(np.float32), int(sample_rate * frame_duration),
+                                    min_start, threshold_ratio)
+    if float_type:
+        return out.astype(audio_data.dtype)
+    return (out.astype(np.float64) * 32768.0).astype(np.int16)
+
+
+def _as_float64(audio_data: np.ndarray, float_type: bool) -> np.ndarray:
+    return audio_data.astype(np.float64) if float_type else audio_data.astype(np.float64) / 32768.0
+
+
+def remove_silence_plain(
+    audio_data: np.ndarray,
+    frame_duration: float = 0.030,
+    sample_rate: int = 16000,
+    min_start: int = 2000,
+    threshold_ratio: float = 0.1,
+) -> np.ndarray:
+    """``remove_silence`` in NumPy, in float64."""
+    float_type = audio_data.dtype in (np.float32, np.float64)
+    audio = _as_float64(audio_data, float_type)
     step = int(sample_rate * frame_duration)
     kept = [audio[:min_start]]
     if len(audio) > min_start + step:

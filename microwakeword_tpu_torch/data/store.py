@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
+from microwakeword_tpu_torch import native
 from microwakeword_tpu_torch.audio.augmentation import Augmentation
 from microwakeword_tpu_torch.audio.clips import Clips
 from microwakeword_tpu_torch.audio.spectrograms import SpectrogramGeneration
@@ -88,9 +89,10 @@ def gather_windows(data: np.ndarray, offsets: np.ndarray, clip_idx: np.ndarray,
                    starts: np.ndarray, length: int) -> np.ndarray:
     """[B, length, F] float32 windows of a ragged uint16 store, scaled by
     FEATURE_SCALE and zero outside each clip (``starts`` relative to the
-    clip, negative for left padding).  The numpy counterpart of the JAX
-    package's native threaded gather (native/src/mww_native.cc), equal to it
-    bit for bit: u * 0.0390625 is exact in float32 for every uint16 u."""
+    clip, negative for left padding).  The plain version of the native
+    threaded gather (``native.gather_windows``, which ``gather_mode`` runs),
+    equal to it bit for bit: u * 0.0390625 is exact in float32 for every
+    uint16 u."""
     clip_idx = np.asarray(clip_idx, np.int64)
     begin = np.asarray(offsets, np.int64)[clip_idx]
     n = np.asarray(offsets, np.int64)[clip_idx + 1] - begin
@@ -174,10 +176,11 @@ class MmapFeatureSet:
                     yield fixed_length_spectrogram(spec_f, features_length, truncation_strategy, cutoff)
 
     def gather_mode(self, mode, features_length, truncation_strategy="default") -> np.ndarray | None:
-        """Vectorized equivalent of list(feature_generator(...)) by
-        ``gather_windows``.  Returns [N, features_length, 40] float32, or
-        None where it does not apply (non-uint16 store, the 'none' and
-        'random' strategies); callers then use feature_generator."""
+        """Vectorized equivalent of list(feature_generator(...)) by the
+        native threaded gather (``native.gather_windows``), as in the JAX
+        package.  Returns [N, features_length, 40] float32, or None where it
+        does not apply (non-uint16 store, the 'none' and 'random'
+        strategies); callers then use feature_generator."""
         if truncation_strategy == "default":
             truncation_strategy = self.truncation_strategy
         if truncation_strategy in ("none", "random"):
@@ -212,8 +215,10 @@ class MmapFeatureSet:
                             s = n - features_length  # <= 0: left zero-pad
                         clip_idx.append(ci)
                         starts.append(s)
-            outs.append(gather_windows(store.data, store.offsets, np.asarray(clip_idx, np.int64),
-                                       np.asarray(starts, np.int64), features_length))
+            outs.append(native.gather_windows(store.data, store.offsets,
+                                              np.asarray(clip_idx, np.int32),
+                                              np.asarray(starts, np.int32), features_length,
+                                              scale=float(FEATURE_SCALE)))
         if not outs:
             return np.zeros((0, features_length, 40), np.float32)
         return np.concatenate(outs, axis=0)

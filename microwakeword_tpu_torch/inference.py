@@ -1,13 +1,21 @@
 """Streaming wake-word inference on raw audio (port of inference.py:25-92).
 
-Two backends behind one ``Model``: the PyTorch one (``from_torch``: the
-streaming model's ring-buffer scan on the model's device), and the C++
-streaming runtime on an exported ``.mww`` file (``from_native``: the
-deployment artifact, on the host CPU).  Features come from the port's
-``frontend_batch`` on the model's device (the CUDA kernel on the card) for
-both; ``predict_clip`` first truncates float PCM to int16 as the JAX
-package's per-clip frontend does (``frontend.plain.float_pcm_to_int16``).
-The TFLite and StableHLO loaders wait for their slices.
+Four backends behind one ``Model``:
+
+- ``from_torch``: the streaming model's ring-buffer scan on the model's
+  device;
+- ``from_exported``: a ``.mwwt`` artifact (``export/torch_export.py``), the
+  serialized ``torch.export`` programs on the caller's device, the
+  counterpart of the JAX package's ``from_stablehlo``;
+- ``from_native``: the C++ streaming runtime on an exported ``.mww`` file,
+  on the host CPU;
+- ``from_tflite``: an exported ``.tflite`` file in the TFLite interpreter,
+  on the host CPU (the reference's deployment artifact).
+
+Features come from the port's ``frontend_batch`` on ``device`` (the CUDA
+kernel on the card) for all four; ``predict_clip`` first truncates float
+PCM to int16 as the JAX package's per-clip frontend does
+(``frontend.plain.float_pcm_to_int16``).
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ class Model:
     """Wake-word model for clip and spectrogram prediction.
 
     Usage: ``Model.from_torch(bundle, state)`` with ``state`` a state dict
-    (for example ``models.convert.flax_to_state(variables)``), or
-    ``Model.from_native("model.mww")``.
+    (for example ``models.convert.flax_to_state(variables)``),
+    ``Model.from_exported("model.mwwt")``, ``Model.from_native("model.mww")``
+    or ``Model.from_tflite("stream_state_internal_quant.tflite", stride=3)``.
     """
 
     def __init__(self, predict_spectrogram_fn, stride: int, device: torch.device,
@@ -63,6 +72,30 @@ class Model:
             return runner.predict_spectrogram(spec.cpu().numpy())
 
         return cls(predict, runner.stride, dev)
+
+    @classmethod
+    def from_exported(cls, path: str, device=None) -> "Model":
+        """A ``.mwwt`` artifact (``export/torch_export.py``): its programs
+        and the frontend of ``predict_clip`` run on ``device``."""
+        from microwakeword_tpu_torch.export.torch_export import ExportedModel
+
+        runner = ExportedModel(path, device)
+        return cls(runner.predict_spectrogram, runner.stride, runner.device)
+
+    @classmethod
+    def from_tflite(cls, path: str, stride: int = 1, device=None) -> "Model":
+        """An exported ``.tflite`` file in the TFLite interpreter on the
+        host; ``device`` runs the frontend of ``predict_clip``."""
+        from microwakeword_tpu_torch.export.tflite import TFLiteStreamingModel
+
+        dev = resolve_device(device)
+        runner = TFLiteStreamingModel(path, stride=stride)
+
+        def predict(spec: torch.Tensor) -> np.ndarray:
+            runner.reset()
+            return runner.predict_spectrogram(spec.cpu().numpy())
+
+        return cls(predict, stride, dev)
 
     @torch.inference_mode()
     def predict_spectrogram(self, spectrogram) -> np.ndarray:

@@ -11,9 +11,13 @@ runs on the CPU).  ``main`` parses the flags and the YAML and writes
 ``training_config.yaml``; ``run`` does the rest and needs no PyYAML.  As in
 the JAX CLI, ``--export_native`` (default 1) writes ``native/model.mww`` and
 the full-int8 ``native/model_quant.mww`` for the C++ streaming runtime, and
-``--test_native_quantized`` scores the int8 file's streamed ROC through it.
-The StableHLO and TFLite exports are not ported: their flags default to 0
-here and raise if set (ROADMAP queue items 7 and 9).
+``--test_native_quantized`` scores the int8 file's streamed ROC through it;
+``--export_stablehlo`` (default 1; the JAX flag's name, so that JAX command
+lines run unchanged) writes ``torch_export/model.mwwt``, the serialized
+``torch.export`` programs (``export/torch_export.py``); the four
+``--test_tflite_*`` flags export and score the ``.tflite`` files (streaming
+or not, float or int8; the streaming int8 one with its ESPHome manifest),
+which needs TensorFlow on the host.
 """
 
 from __future__ import annotations
@@ -24,15 +28,12 @@ import os
 
 from microwakeword_tpu_torch.device import resolve_device
 
-# flag -> the ROADMAP queue item that ports it
-_NOT_PORTED = {
-    "test_tflite_nonstreaming": 9, "test_tflite_nonstreaming_quantized": 9,
-    "test_tflite_streaming": 9, "test_tflite_streaming_quantized": 9, "export_stablehlo": 7,
+# --test_tflite_* flag -> (quantize, streaming) of its .tflite file, in the
+# JAX CLI's order
+TFLITE_RUNS = {
+    "test_tflite_streaming": (False, True), "test_tflite_streaming_quantized": (True, True),
+    "test_tflite_nonstreaming": (False, False), "test_tflite_nonstreaming_quantized": (True, False),
 }
-
-
-def _not_ported(name: str) -> str:
-    return f"not ported yet (ROADMAP queue item {_NOT_PORTED[name]}): setting it to 1 raises"
 
 
 def parse(text):
@@ -87,8 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--test_native_quantized", type=int, default=0,
                         help="Streamed ambient ROC of native/model_quant.mww through the C++ "
                              "runtime (requires --export_native)")
-    for name in _NOT_PORTED:
-        parser.add_argument(f"--{name}", type=int, default=0, help=_not_ported(name))
+    for name in TFLITE_RUNS:
+        parser.add_argument(f"--{name}", type=int, default=0,
+                            help="Export and score this .tflite file (needs TensorFlow)")
+    parser.add_argument("--export_stablehlo", type=int, default=1,
+                        help="Export train_dir/torch_export/model.mwwt, the serialized "
+                             "torch.export programs (export/torch_export.py)")
     parser.add_argument("--mesh", type=str, default="auto",
                         help="'auto' or 'off' (one device), or a device count; more than "
                              "one device is not ported yet (ROADMAP queue item 10)")
@@ -192,16 +197,14 @@ def native_streaming_roc(bundle, model, feature_handler, config: dict, path: str
 def run(flags, config: dict) -> dict:
     """Trains (``--train 1``), loads ``--use_weights``, evaluates and exports,
     as the JAX CLI does after reading its YAML.  Returns {"history",
-    "streaming_roc", "accuracy", "native", "native_quantized_roc"} (None
-    where not run)."""
+    "streaming_roc", "accuracy", "native", "native_quantized_roc",
+    "exported", "tflite"} (None where not run; "tflite" maps each
+    ``--test_tflite_*`` flag set to its file)."""
     from microwakeword_tpu_torch.data.store import FeatureHandler
     from microwakeword_tpu_torch.evaluate.streaming_eval import model_accuracy, streaming_model_roc
     from microwakeword_tpu_torch.models import build_model
     from microwakeword_tpu_torch.train import loop as training
 
-    for name in _NOT_PORTED:
-        if getattr(flags, name):
-            raise NotImplementedError(f"--{name}: {_not_ported(name)}")
     mesh = _mesh_devices(flags.mesh)
     device = resolve_device(flags.device)
     bundle = build_model(flags.model_name, config["model_config"])
@@ -209,7 +212,7 @@ def run(flags, config: dict) -> dict:
 
     train_dir = config["train_dir"]
     out = {"history": None, "streaming_roc": None, "accuracy": None, "native": None,
-           "native_quantized_roc": None}
+           "native_quantized_roc": None, "exported": None, "tflite": None}
     if flags.train:
         _, out["history"] = training.train(
             bundle, config, feature_handler, restore_checkpoint=bool(flags.restore_checkpoint),
@@ -240,6 +243,29 @@ def run(flags, config: dict) -> dict:
             bundle, model, feature_handler, config, out["native"]["int8"], native_dir,
             "quantized_streaming_roc.txt")
         print(f"native int8 streaming ROC AUC: {out['native_quantized_roc']['auc']:.5f}")
+
+    if flags.export_stablehlo:
+        from microwakeword_tpu_torch.export.torch_export import export_streaming
+
+        export_dir = os.path.join(train_dir, "torch_export")
+        os.makedirs(export_dir, exist_ok=True)
+        path = os.path.join(export_dir, "model.mwwt")
+        try:
+            export_streaming(bundle, model.state_dict(), path)
+            out["exported"] = path
+            print(f"torch.export model: {path}")
+        except ValueError as e:
+            # e.g. spatial_attention without pooling has no streaming form
+            print(f"torch.export export skipped: {e}")
+
+    runs = {name: kind for name, kind in TFLITE_RUNS.items() if getattr(flags, name)}
+    if runs:
+        from microwakeword_tpu_torch.export.tflite import export_and_evaluate_tflite
+
+        out["tflite"] = {
+            name: export_and_evaluate_tflite(bundle, model, feature_handler, config, train_dir,
+                                             quantize=quantize, streaming=streaming)
+            for name, (quantize, streaming) in runs.items()}
     return out
 
 

@@ -1,8 +1,9 @@
 """The port's offline audio pipeline against the JAX package's.
 
-Both packages read the same WAV files; the JAX package's native decoder and
-VAD are switched off (``microwakeword_tpu.native.available`` -> False), so
-both take their scipy/numpy paths.
+Both packages read the same WAV files through their defaults: the native
+decoder, resampler and VAD (``native/src/mww_native.cc``), which the JAX
+package loads as ``microwakeword_tpu.native`` and the port builds and binds
+as ``microwakeword_tpu_torch.native``.
 
 - ``load_audio``, ``save_clip``, ``wav_duration_seconds``, ``remove_silence``,
   every DSP primitive, ``Augmentation`` and ``Clips`` (split, repeat, VAD,
@@ -20,7 +21,6 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from microwakeword_tpu import native as jax_native
 from microwakeword_tpu.audio import augmentation as JA
 from microwakeword_tpu.audio import clips as JC
 from microwakeword_tpu.audio import dsp as JD
@@ -41,10 +41,6 @@ torch.set_num_threads(2)
 
 ALL_ON = {name: 1.0 for name in JA.DEFAULT_PROBABILITIES}
 
-
-@pytest.fixture(autouse=True)
-def no_native(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
 
 
 def _gated_tone(rng, seconds, f0, amp=0.4):

@@ -12,8 +12,11 @@ store, against the JAX package where it has a counterpart.
 - the Inception family trains through the CLI, and the default
   ``--export_native 1`` writes both ``.mww`` files, which the C++ runtime
   runs like the port's ``stream_scan``;
-- what the port does not carry yet raises NotImplementedError naming its
-  ROADMAP queue item.
+- ``--export_stablehlo`` writes ``torch_export/model.mwwt`` and
+  ``--test_tflite_streaming_quantized`` the int8 ``.tflite`` and its ESPHome
+  manifest;
+- what the port does not carry yet (more than one device) raises
+  NotImplementedError naming its ROADMAP queue item.
 """
 
 import json
@@ -233,8 +236,6 @@ def test_model_accuracy_matches_jax(trained, twin, data_set, use_streaming):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--export_stablehlo", "1"], "item 7"),
-    (["--test_tflite_streaming", "1"], "item 9"),
     (["--mesh", "2"], "item 10"),
 ])
 def test_cli_flags_not_ported_raise(store, extra, item):
@@ -242,6 +243,41 @@ def test_cli_flags_not_ported_raise(store, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
                   "--train", "0"] + extra + MODEL_FLAGS)
+
+
+def test_cli_exports_mwwt_tflite_and_manifest(store, trained):
+    """``--export_stablehlo 1 --test_tflite_streaming_quantized 1`` on the
+    trained run: ``torch_export/model.mwwt`` serves like the weights, and the
+    int8 streaming ``.tflite``, its scores and its ESPHome manifest are
+    written under the JAX CLI's names."""
+    pytest.importorskip("tensorflow")
+    from microwakeword_tpu_torch.export.torch_export import ExportedModel
+
+    root, _ = store
+    flags, config, _ = trained
+    run_dir = root / "run"
+    out = CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
+                    "--train", "0", "--export_native", "0", "--export_stablehlo", "1",
+                    "--test_tflite_streaming_quantized", "1"] + MODEL_FLAGS)
+    assert out["exported"] == str(run_dir / "torch_export" / "model.mwwt")
+    bundle = build_model("mixednet", config["model_config"])
+    model = T.load_weights(bundle, str(run_dir / "best_weights.pt"), device="cpu")
+    x = torch.rand(3, config["spectrogram_length"], 40) * 20
+    with torch.no_grad():
+        np.testing.assert_allclose(ExportedModel(out["exported"], "cpu").forward(x).numpy(),
+                                   bundle.forward(model, x).numpy(), atol=1e-6)
+    folder = run_dir / "tflite_stream_state_internal_quant"
+    assert out["tflite"] == {"test_tflite_streaming_quantized":
+                             str(folder / "stream_state_internal_quant.tflite")}
+    for name in ("stream_state_internal_quant.tflite", "tflite_streaming_roc.txt",
+                 "tflite_model_accuracy.txt", "tflite_ambient_false_accepts.txt", "run.json"):
+        assert (folder / name).exists(), name
+    with open(folder / "run.json") as f:
+        manifest = json.load(f)
+    assert manifest["model"] == "stream_state_internal_quant.tflite"
+    assert manifest["wake_word"] == "run" and manifest["version"] == 2
+    assert 0.0 <= manifest["micro"]["probability_cutoff"] <= 1.0
+    assert manifest["micro"]["feature_step_size"] == config["window_step_ms"]
 
 
 def _sweep_config(root, config, name):

@@ -1,7 +1,7 @@
 """clips-type feature sets and the dataset build against the JAX package.
 
-The same WAV files and seeds in both packages, the JAX package's native
-decoder switched off:
+The same WAV files and seeds in both packages, both reading them through
+their native decoders (the JAX package's default):
 
 - ``ClipsFeatureSet.generate_audio_pool`` is bit-equal to JAX's;
 - ``generate_pool`` (the port's batched frontend on the CPU) matches JAX's
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from microwakeword_tpu import build_dataset as jax_build
-from microwakeword_tpu import native as jax_native
 from microwakeword_tpu.data import sampler as JS
 from microwakeword_tpu.data.ragged_store import RaggedSpectrogramStore as JaxStore
 from microwakeword_tpu.data.store import FeatureHandler as JaxFeatureHandler
@@ -34,10 +33,6 @@ torch.set_num_threads(2)
 
 SCALE = 0.0390625
 
-
-@pytest.fixture(autouse=True)
-def no_native(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")

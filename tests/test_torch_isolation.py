@@ -44,6 +44,8 @@ from microwakeword_tpu_torch.train import loop
 from microwakeword_tpu_torch import sweep
 from microwakeword_tpu_torch.data import host_stream
 from microwakeword_tpu_torch.parallel import population
+from microwakeword_tpu_torch.export import manifest, tflite, torch_export
+from microwakeword_tpu_torch import native
 bundle = build_model("mixednet", presets.flagship_config())
 model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
 state = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -80,6 +82,14 @@ packed = sampler.pack_training_data(FeatureHandler(config).providers, "cpu")
 stacked, history = population.train_population(small, packed, 2, 2, 4, config["spectrogram_length"],
                                                device="cpu")
 assert history[-1]["loss"].shape == (2,), history
+trained = loop.load_weights(small, os.path.join(root, "run", "best_weights.pt"), "cpu")
+torch_export.export_streaming(small, trained.state_dict(), os.path.join(root, "small.mwwt"))
+probs = Model.from_exported(os.path.join(root, "small.mwwt"), device="cpu").predict_clip(audio)
+assert probs.shape == (48,), probs.shape
+wav = os.path.join(root, "a.wav")
+native.wav_write_16k_i16(wav, audio)
+assert np.array_equal(io.load_audio(wav), audio / np.float32(32768.0))
+assert "tensorflow" not in sys.modules  # only the TFLite functions import it
 added = set(sys.modules) - before
 print(json.dumps(sorted(added)))
 """
@@ -101,7 +111,8 @@ def test_import_and_predict_load_no_jax():
     for name in ("train.loop", "build_dataset", "data.refresh", "audio.io", "audio.vad", "audio.dsp",
                  "audio.augmentation", "audio.clips", "audio.spectrograms", "models.inception",
                  "export.native_runtime", "export.native_quant", "native", "data.host_stream",
-                 "parallel.population", "sweep"):
+                 "parallel.population", "sweep", "export.manifest", "export.tflite",
+                 "export.torch_export"):
         assert f"microwakeword_tpu_torch.{name}" in added, name
     assert [m for m in added if _forbidden(m)] == []
     assert "yaml" not in added  # only the CLI's main() reads YAML
@@ -129,6 +140,15 @@ def test_scan_covers_the_population_path():
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     for name in ("parallel/__init__.py", "parallel/population.py", "sweep.py",
                  "data/host_stream.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
+
+
+def test_scan_covers_the_deployment_exports():
+    """The scan below reaches the TFLite exporter, the ESPHome manifest, the
+    ``torch.export`` artifact and the host I/O bindings."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("export/tflite.py", "export/manifest.py", "export/torch_export.py",
+                 "native.py", "inference.py", "audio/io.py", "audio/vad.py"):
         assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
@@ -176,6 +196,18 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Model.from_native(path)
     assert Model.from_native(path, device="cpu").predict_spectrogram(
+        np.zeros((9, 40), np.float32)).shape == (3,)
+    from microwakeword_tpu_torch.export.torch_export import ExportedModel, export_streaming
+
+    exported = str(tmp_path / "model.mwwt")
+    export_streaming(bundle, state, exported)  # a host step: no device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExportedModel(exported)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model.from_exported(exported)
+    with pytest.raises(RuntimeError, match="CUDA"):  # before it reads the file
+        Model.from_tflite(str(tmp_path / "absent.tflite"))
+    assert Model.from_exported(exported, device="cpu").predict_spectrogram(
         np.zeros((9, 40), np.float32)).shape == (3,)
     assert Model.from_torch(bundle, state, device="cpu").predict_spectrogram(
         np.zeros((9, 40), np.float32)

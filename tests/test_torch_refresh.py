@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from microwakeword_tpu import native as jax_native
 from microwakeword_tpu.data import sampler as JS
 from microwakeword_tpu.data.refresh import PoolRefresher as JaxPoolRefresher
 from microwakeword_tpu_torch.audio.io import save_clip
@@ -31,10 +30,6 @@ from microwakeword_tpu_torch.train import loop as T
 
 torch.set_num_threads(2)
 
-
-@pytest.fixture(autouse=True)
-def no_native(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
 
 
 class FakeAudioProvider:
