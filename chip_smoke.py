@@ -131,7 +131,23 @@ printing its own lines; any failure exits non-zero:
    resampling, native and scipy.  TFLite is not driven on the card: its
    machine has no TensorFlow (tests/test_torch_tflite.py and
    tests/test_torch_cli.py hold it on the CPU);
-18. a JSON line of the kernels, then the last line
+18. data-parallel training (parallel/): (a) the flagship at full width on
+    phase 9's raw-audio pools, batch 128, trained for 20 steps through the
+    data-parallel step in a NCCL process group of one rank on this card,
+    against the solo step from the same seed and weights (TF32 off,
+    deterministic cuDNN): losses, parameters and BatchNorm statistics within
+    1e-6 (equality expected), 3 frontend launches per step; the world-1 step
+    and the solo step timed in turns by CUDA events, with kernels and
+    collectives per step; (b) two ranks on this one card over gloo (a
+    one-card stand-in, passed as the backend by name), the flagship on phase
+    6's store, batch 128 (64 per rank), replicated corpus, 20 steps against
+    the solo step (deterministic cuDNN): held in float64 to the JAX
+    package's bounds (loss rtol 1e-5, parameters 2e-5), in float32 to loss
+    rtol 2e-3 and parameters 1e-3, which a control run with BatchNorm
+    statistics per rank must exceed; the two-rank step timed; then a sharded
+    corpus, whose two ranks' clips are disjoint and together the whole
+    corpus;
+19. a JSON line of the kernels, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -139,7 +155,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
+import hashlib
 import io
 import json
 import math
@@ -176,7 +194,10 @@ from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
 from microwakeword_tpu_torch.models.mixednet import stream_phase
 from microwakeword_tpu_torch.native import StreamingRuntime
+from microwakeword_tpu_torch.parallel import corpus as dp_corpus
+from microwakeword_tpu_torch.parallel import mesh as dp_mesh
 from microwakeword_tpu_torch.parallel import population
+from microwakeword_tpu_torch.parallel.train_step import make_sharded_train_step
 from microwakeword_tpu_torch.train import loop as training
 from microwakeword_tpu_torch.train import metrics as M
 
@@ -272,6 +293,16 @@ EXPORTED_STEPS = 500  # streamed steps of a test ambient track, held to STREAM_A
 EXPORTED_TIMED_STEPS = 100
 EXPORTED_PROFILED_STEPS = 20
 # Phase 17: the native host I/O
+DP_STEPS = 20  # phase 18: steps of each data-parallel run held against solo
+DP_TIMED_STEPS = 30
+DP_WORLD1_ATOL = 1e-6  # NCCL world 1 against solo: every share is 1.0, equality expected
+# tests/test_parallel.py's bounds for the JAX package's sharded step, held in
+# float64.  In float32 Adam's first updates (signs of near-zero gradients) and
+# the fast variance amplify the order of the sums over 20 steps, past these
+# bounds; float32 is held to wider ones that the control of phase 18(b)
+# (BatchNorm statistics per rank) must exceed
+DP_LOSS_RTOL, DP_PARAM_ATOL = 1e-5, 2e-5
+DP_F32_LOSS_RTOL, DP_F32_PARAM_ATOL = 2e-3, 1e-3
 RESAMPLE_ATOL = 2e-4  # native vs scipy resampling (tests/test_native.py)
 VAD_ATOL = 1e-6  # native (float32) vs NumPy (float64) VAD (tests/test_native.py)
 RESAMPLE_S, RESAMPLE_RATE = 60, 44100  # seconds of 44.1 kHz audio resampled to 16 kHz
@@ -915,7 +946,9 @@ def phase_raw_audio(dev: torch.device, smi: str, seed: int, root: str, built: di
     print_profile("phase 9", m)
     print(f"phase 9 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
           f"raised nothing", flush=True)
-    return dict(m, launches=launches, steps=steps, max_abs=res.max_abs)
+    # the pools wait in host memory for phase 18, off the card's peak readings
+    return dict(m, launches=launches, steps=steps, max_abs=res.max_abs,
+                packed=packed_to(packed, "cpu"), config=config)
 
 
 def phase_mixed(dev: torch.device, smi: str, seed: int, root: str, built: dict,
@@ -1695,6 +1728,227 @@ def phase_native_io(smi: str, native_build: dict, wav_root: str, seed: int) -> d
                 build_s=native_build["s"], resample_max_abs=resample_err, vad_max_abs=vad_err)
 
 
+def dp_run(bundle, packed, phase: dict, dev, seed: int, mesh, dtype=torch.float32,
+           per_rank_stats: bool = False) -> tuple:
+    """DP_STEPS steps from the seed's weights and generator, batch 128: the
+    solo step (``mesh`` None) or this rank's data-parallel step, with
+    ``per_rank_stats`` its BatchNorms normalising by this rank's rows alone
+    (the control of phase 18(b)).  Returns (losses, state in float64 on the
+    CPU, the step)."""
+    model = bundle.init(torch.Generator().manual_seed(seed), device=dev).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    length = bundle.spectrogram_length
+    step = (training.make_train_step(bundle, model, packed, 128, length, generator=gen)
+            if mesh is None else
+            make_sharded_train_step(bundle, model, packed, 128, length, mesh, generator=gen))
+    if per_rank_stats:
+        for bn in step.batch_norms:
+            bn.stats_reduce = None
+    losses = [float(step.step(**phase)["loss"]) for _ in range(DP_STEPS)]
+    state = {k: v.detach().to("cpu", torch.float64, copy=True)
+             for k, v in model.state_dict().items()}
+    return losses, state, step
+
+
+def packed_to(obj, device):
+    """A packed corpus (a sampler dataclass, its parts included) with every
+    tensor moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: packed_to(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def max_diff(a: dict, b: dict, stats: bool) -> float:
+    """max |a - b| over the parameters (``stats`` False) or the BatchNorm
+    statistics."""
+    return max(float((a[k] - b[k]).abs().max()) for k in a
+               if k.endswith((".mean", ".var")) == stats)
+
+
+def clip_digests(arrays: dict) -> list:
+    """sha1 of each real clip's frames in a pack (padding clips excluded)."""
+    frames = np.asarray(arrays["frames"])
+    real = int(np.sum(np.asarray(arrays["provider_clip_count"])[
+        np.asarray(arrays["provider_logits"]) > -1e29]))
+    return [hashlib.sha1(frames[o : o + n].tobytes()).hexdigest()
+            for o, n in zip(np.asarray(arrays["clip_offset"])[:real],
+                            np.asarray(arrays["clip_length"])[:real])]
+
+
+# phase 18(b)'s runs on each rank: (dtype, BatchNorm statistics per rank)
+DP_GLOO_RUNS = ((torch.float64, False), (torch.float32, False), (torch.float32, True))
+
+
+def dp_gloo_rank(spectrograms: str, seed: int, device: str) -> dict:
+    """Phase 18(b) on one of two ranks sharing the card ``device`` over
+    gloo: the replicated data-parallel runs of DP_GLOO_RUNS, the float32
+    step's time, then this rank's clips of a sharded corpus."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = dp_mesh.create_mesh(2, device)
+    config = recipe(spectrograms, seed)
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    bundle = build_model("mixednet", presets.flagship_config())
+    handler = FeatureHandler(config, mesh.device)
+    packed, sharded = dp_corpus.pack_for_mesh(
+        handler.providers, dict(config, corpus_sharding="replicate"), mesh)
+    out = {"backend": mesh.backend, "sharded": sharded}
+    for dtype, per_rank in DP_GLOO_RUNS:
+        losses, state, step = dp_run(bundle, packed, phase, mesh.device, seed, mesh, dtype,
+                                     per_rank)
+        out[(str(dtype), per_rank)] = (losses, state)
+        if dtype == torch.float32 and not per_rank:
+            before = mesh.collectives
+            out["step_ms"], out["host_ms"] = events_ms(lambda: step.step(**phase), DP_TIMED_STEPS)
+            out["collectives_per_step"] = (mesh.collectives - before) / (DP_TIMED_STEPS + 5)
+    del packed, step
+    shard = dp_corpus.pack_shard(handler.providers, mesh)
+    out["clips"] = clip_digests({k: v.cpu().numpy() for k, v in vars(shard).items()
+                                 if isinstance(v, torch.Tensor)})
+    return out
+
+
+def dp_gaps(ranks: list, solo: dict, key) -> tuple[float, float, float]:
+    """The largest gap over the ranks between run ``key`` and the solo run:
+    (loss max rel, parameters max|d|, statistics max|d|)."""
+    losses, state = solo
+    gaps = []
+    for r in ranks:
+        got_losses, got = r[key]
+        gaps.append((max(abs(a - b) / abs(b) for a, b in zip(got_losses, losses)),
+                     max_diff(got, state, False), max_diff(got, state, True)))
+    return tuple(max(g[i] for g in gaps) for i in range(3))
+
+
+def phase_dp_world1(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
+    """Phase 18(a) and its times in (c): NCCL world 1 on phase 9's raw-audio
+    pools, which wait in host memory between the phases."""
+    config = raw["config"]
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    packed = packed_to(raw["packed"], dev)
+    torch.backends.cudnn.deterministic = True
+    mesh = dp_mesh.init_mesh(1, 0, dev, init_method=f"tcp://localhost:{dp_mesh.free_port()}")
+    try:
+        check(mesh.backend == "nccl", f"world-1 backend {mesh.backend}")
+        solo_losses, solo, solo_step = dp_run(bundle, packed, phase, dev, seed, None)
+        kernel.frontend_batch.launches = 0
+        dp_losses, dp, dp_step = dp_run(bundle, packed, phase, dev, seed, mesh)
+        launches = kernel.frontend_batch.launches
+        torch.backends.cudnn.deterministic = False
+        d_loss = max(abs(a - b) for a, b in zip(dp_losses, solo_losses))
+        d_param, d_stats = max_diff(dp, solo, False), max_diff(dp, solo, True)
+        check(launches == kernel.LAUNCHES_PER_CALL * DP_STEPS,
+              f"the world-1 run launched the frontend kernel {launches} times in {DP_STEPS} steps")
+        check(max(d_loss, d_param, d_stats) <= DP_WORLD1_ATOL,
+              f"NCCL world 1 against solo: loss {d_loss}, parameters {d_param}, "
+              f"statistics {d_stats} > {DP_WORLD1_ATOL}")
+        print(f"phase 18(a) NCCL world 1, raw audio, flagship batch 128, {DP_STEPS} steps "
+              f"against the solo step (TF32 off, deterministic cuDNN): max|d| loss {d_loss:.3e}, "
+              f"parameters {d_param:.3e}, BatchNorm statistics {d_stats:.3e}; frontend launches "
+              f"{launches} ({launches / DP_STEPS:.1f} per step)", flush=True)
+        # in turns: solo, world 1, world 1, solo
+        times = [events_ms(lambda s=s: s.step(**phase), DP_TIMED_STEPS)[0]
+                 for s in (solo_step, dp_step, dp_step, solo_step)]
+        before = mesh.collectives
+        dp_step.step(**phase)
+        collectives = mesh.collectives - before
+        kernels = {}
+        for name, s in (("solo", solo_step), ("world 1", dp_step)):
+            kernels[name] = device_profile(lambda s=s: [s.step(**phase) for _ in range(10)])[3] / 10
+        n_bn = len(dp_step.batch_norms)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.distributed.destroy_process_group()
+    raw_solo_ms, world1_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    print(f"phase 18(c) NCCL world-1 raw-audio step {world1_ms:.4f} ms against the solo step "
+          f"{raw_solo_ms:.4f} ms by CUDA events over {DP_TIMED_STEPS} steps, in turns "
+          f"({', '.join(f'{t:.4f}' for t in times)}; phase 9's solo step "
+          f"{raw['step_ms']:.4f} ms); kernels per step {kernels['world 1']:.1f} (solo "
+          f"{kernels['solo']:.1f}); collectives per step {collectives} (2 for each of "
+          f"{n_bn} BatchNorms, 1 gradient, 1 metrics) ({smi})", flush=True)
+    return dict(launches=launches, world1_ms=world1_ms, solo_ms=raw_solo_ms,
+                collectives=collectives, kernels=kernels["world 1"])
+
+
+def phase_dp_gloo(dev: torch.device, smi: str, seed: int, spectrograms: str) -> dict:
+    """Phase 18(b) and its time in (c): two gloo ranks on this card on phase
+    6's store, against the solo step in this process."""
+    t0 = time.perf_counter()
+    card = str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)  # both ranks on it
+    ranks = dp_mesh.launch(dp_gloo_rank, 2, card, spectrograms, seed, card, backend="gloo")
+    wall = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and not r["sharded"] for r in ranks), "gloo ranks")
+    rconfig = recipe(spectrograms, seed)
+    rphase = {k: v for k, v in training.resolve_schedules(rconfig)[0].items() if k != "steps"}
+    handler = FeatureHandler(rconfig, dev)
+    packed = handler.pack_training(dev)
+    flagship = build_model("mixednet", presets.flagship_config())
+    torch.backends.cudnn.deterministic = True
+    try:
+        solo = {}
+        for dtype in (torch.float64, torch.float32):
+            losses, state, step = dp_run(flagship, packed, rphase, dev, seed, None, dtype)
+            solo[str(dtype)] = (losses, state)
+        spec_solo_ms = events_ms(lambda: step.step(**rphase), DP_TIMED_STEPS)[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gaps = {}
+    for dtype, per_rank in DP_GLOO_RUNS:
+        key = (str(dtype), per_rank)
+        gaps[key] = dp_gaps(ranks, solo[str(dtype)], key)
+        rel, d_param, d_stats = gaps[key]
+        print(f"phase 18(b) two gloo ranks on one card, {dtype}, BatchNorm statistics "
+              f"{'per rank (the control)' if per_rank else 'global'}, {DP_STEPS} steps against "
+              f"the solo step (TF32 off, deterministic cuDNN): loss max rel {rel:.3e}, "
+              f"parameters max|d| {d_param:.3e}, statistics max|d| {d_stats:.3e}", flush=True)
+        # the parameters are equal on the ranks; the statistics too, unless
+        # each rank keeps its own (the control)
+        a, b = (r[key][1] for r in ranks)
+        check(max_diff(a, b, False) == 0 and (per_rank or max_diff(a, b, True) == 0),
+              f"the two ranks' weights differ in run {key}")
+    for dtype, (loss_rtol, param_atol) in ((torch.float64, (DP_LOSS_RTOL, DP_PARAM_ATOL)),
+                                           (torch.float32, (DP_F32_LOSS_RTOL, DP_F32_PARAM_ATOL))):
+        rel, d_param, _ = gaps[(str(dtype), False)]
+        check(rel <= loss_rtol and d_param <= param_atol,
+              f"two gloo ranks against solo in {dtype}: loss rel {rel} (rtol {loss_rtol}), "
+              f"parameters {d_param} (atol {param_atol})")
+    rel, d_param, _ = gaps[(str(torch.float32), True)]
+    check(rel > DP_F32_LOSS_RTOL and d_param > DP_F32_PARAM_ATOL,
+          f"the control (per-rank statistics) is within the float32 bounds: loss rel {rel}, "
+          f"parameters {d_param}; the bounds would not tell global statistics from per-rank ones")
+    print(f"phase 18(b) held: float64 to loss rtol {DP_LOSS_RTOL} and parameters atol "
+          f"{DP_PARAM_ATOL}; float32 to loss rtol {DP_F32_LOSS_RTOL} and parameters atol "
+          f"{DP_F32_PARAM_ATOL}, which the control exceeds in both", flush=True)
+    full = set(clip_digests(sampler.pack_training_arrays(handler.providers)))
+    shards = [set(r["clips"]) for r in ranks]
+    check(not shards[0] & shards[1] and shards[0] | shards[1] == full,
+          "the two ranks' shards are not a partition of the corpus")
+    print(f"phase 18(b) sharded corpus: {len(shards[0]):,} and {len(shards[1]):,} clips on the "
+          f"two ranks, disjoint, together the corpus's {len(full):,}", flush=True)
+    gloo_ms = ranks[0]["step_ms"]
+    print(f"phase 18(c) two gloo ranks on one card (a one-card stand-in, not a multi-GPU "
+          f"figure): {gloo_ms:.4f} ms per step by CUDA events on rank 0 over {DP_TIMED_STEPS} "
+          f"steps (host clock {ranks[0]['host_ms']:.4f} ms), {ranks[0]['collectives_per_step']:.1f} "
+          f"collectives per step, against the solo spectrogram step {spec_solo_ms:.4f} ms; phase "
+          f"wall {wall:.1f} s with the ranks' start ({smi})", flush=True)
+    return dict(gloo_ms=gloo_ms, spectrogram_solo_ms=spec_solo_ms,
+                f32_gaps=gaps[(str(torch.float32), False)],
+                f32_control_gaps=gaps[(str(torch.float32), True)])
+
+
+def phase_data_parallel(dev: torch.device, smi: str, seed: int, raw: dict,
+                        spectrograms: str) -> dict:
+    """Phase 18 (the module docstring): (a) NCCL world 1 on phase 9's
+    raw-audio pools; (b) two gloo ranks on this card on phase 6's store."""
+    return dict(phase_dp_world1(dev, smi, seed, raw),
+                **phase_dp_gloo(dev, smi, seed, spectrograms))
+
+
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
     """Seeded noise at a per-stream level plus 0.4 s tone bursts, int16."""
     t = np.arange(samples) / FC.SAMPLE_RATE
@@ -2006,8 +2260,12 @@ def main() -> int:
              INCEPTION_STEP_MS)], pcm_np)
         mark(17)
         host_io = phase_native_io(smi, native_build, built["wav_root"], args.seed)
+        # 18. data-parallel training: NCCL world 1, two gloo ranks on this card
+        mark(18)
+        parallel = phase_data_parallel(dev, smi, args.seed, raw, spectrograms)
+        del raw["packed"]
 
-    # 18. the kernels line, then the last line
+    # 19. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
@@ -2036,6 +2294,12 @@ def main() -> int:
         exported_stream_step_ms={k: v["step_ms"] for k, v in served.items()},
         native_decode_ms_per_audio_s=host_io["decode_ms_per_audio_s"],
         native_resample_ms_per_audio_s=host_io["resample_ms_per_audio_s"],
+        launches_dp_world1_run=parallel["launches"],
+        launches_per_dp_world1_step=parallel["launches"] / DP_STEPS,
+        dp_world1_step_ms=parallel["world1_ms"], dp_solo_step_ms=parallel["solo_ms"],
+        dp_collectives_per_step=parallel["collectives"],
+        dp_world1_kernels_per_step=parallel["kernels"],
+        gloo_two_ranks_one_card_step_ms=parallel["gloo_ms"],
     )]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -17,6 +17,12 @@ exactly as the JAX package does from its draws, and the wrappers here draw
 those values from the generator.  The provider draw is Gumbel-max, which is what
 ``jax.random.categorical`` computes.
 
+The wrappers take ``rows``, a slice of the batch: every uniform is drawn for
+the whole ``batch_size``-row batch, and only the rows of the slice are
+gathered and computed.  One rank of a data-parallel mesh draws its block of
+the batch so (``parallel/train_step.py``): the rows it computes are the solo
+step's, and its generator stays in step with every other rank's.
+
 torch has no uint16 indexing on the card, so the corpus holds the store's
 bits as int16 and ``windows_to_float`` reads them back as uint16.
 """
@@ -229,10 +235,16 @@ def spec_augment_from_uniforms(feats: torch.Tensor, u_size: torch.Tensor, u_star
 
 
 def apply_spec_augment(generator: torch.Generator, feats: torch.Tensor, time_mask_max_size: int,
-                       time_mask_count: int, freq_mask_max_size: int, freq_mask_count: int) -> torch.Tensor:
-    """Per-sample SpecAugment with uniforms drawn from ``generator``."""
+                       time_mask_count: int, freq_mask_max_size: int, freq_mask_count: int,
+                       batch_size: int | None = None, rows: slice | None = None) -> torch.Tensor:
+    """Per-sample SpecAugment with uniforms drawn from ``generator``: a draw
+    for ``batch_size`` rows (default feats' rows), of which ``rows`` are
+    feats'."""
     m = time_mask_count + freq_mask_count
-    u = torch.rand((feats.shape[0], 2 * m), generator=generator, device=feats.device)
+    n = feats.shape[0] if batch_size is None else batch_size
+    u = torch.rand((n, 2 * m), generator=generator, device=feats.device)
+    if rows is not None:
+        u = u[rows]
     return spec_augment_from_uniforms(feats, u[:, :m], u[:, m:], time_mask_max_size,
                                       time_mask_count, freq_mask_max_size, freq_mask_count)
 
@@ -287,9 +299,9 @@ def windows_from_uniforms(data: PackedTrainingData, u: torch.Tensor, features_le
 
 
 def _draw_windows(data: PackedTrainingData, generator: torch.Generator, batch_size: int,
-                  features_length: int):
-    return windows_from_uniforms(data, window_uniforms(data, generator, batch_size),
-                                 features_length)
+                  features_length: int, rows: slice | None = None):
+    u = window_uniforms(data, generator, batch_size)
+    return windows_from_uniforms(data, u if rows is None else u[rows], features_length)
 
 
 def sample_batch_indices(data: PackedTrainingData, generator: torch.Generator, batch_size: int,
@@ -303,26 +315,30 @@ def sample_batch_indices(data: PackedTrainingData, generator: torch.Generator, b
 
 def finish_batch(generator: torch.Generator | None, windows: torch.Tensor, valid: torch.Tensor,
                  time_mask_max_size: int = 0, time_mask_count: int = 0,
-                 freq_mask_max_size: int = 0, freq_mask_count: int = 0) -> torch.Tensor:
+                 freq_mask_max_size: int = 0, freq_mask_count: int = 0,
+                 batch_size: int | None = None, rows: slice | None = None) -> torch.Tensor:
     """Scaling and SpecAugment of gathered int16 windows: features [B, L, F]
-    float32 in [0, 2560), zero outside the clip."""
+    float32 in [0, 2560), zero outside the clip.  The windows are ``rows``
+    of a ``batch_size``-row batch where given (apply_spec_augment)."""
     feats = windows_to_float(windows) * valid[:, :, None] * FEATURE_SCALE
     if time_mask_count or freq_mask_count:
         feats = apply_spec_augment(generator, feats, time_mask_max_size, time_mask_count,
-                                   freq_mask_max_size, freq_mask_count)
+                                   freq_mask_max_size, freq_mask_count, batch_size, rows)
     return feats
 
 
 def sample_batch(data: PackedTrainingData, generator: torch.Generator, batch_size: int,
                  features_length: int, time_mask_max_size: int = 0, time_mask_count: int = 0,
-                 freq_mask_max_size: int = 0, freq_mask_count: int = 0):
+                 freq_mask_max_size: int = 0, freq_mask_count: int = 0,
+                 rows: slice | None = None):
     """One training batch on the card: the draw (_draw_windows), the frame
     gather and finish_batch.  Returns (features [B, L, F] float32, labels
-    [B], weights [B])."""
-    off, n, start, labels, weights = _draw_windows(data, generator, batch_size, features_length)
+    [B], weights [B]), or the ``rows`` of them."""
+    off, n, start, labels, weights = _draw_windows(data, generator, batch_size, features_length,
+                                                   rows)
     windows, valid = gather_windows(data.frames, off, n, start, features_length)
     feats = finish_batch(generator, windows, valid, time_mask_max_size, time_mask_count,
-                         freq_mask_max_size, freq_mask_count)
+                         freq_mask_max_size, freq_mask_count, batch_size, rows)
     return feats, labels, weights
 
 
@@ -482,7 +498,10 @@ def audio_window_starts(data: PackedAudioData, prov: torch.Tensor, u_clip: torch
 def audio_features(pcm: torch.Tensor, hop_samples: int, features_length: int) -> torch.Tensor:
     """Features [B, L, 40] of the gathered windows: the frontend kernel on the
     card (3 launches), its plain version on the CPU.  Each window's noise
-    estimate starts from zero, as the JAX package's in-step frontend does."""
+    estimate starts from zero, as the JAX package's in-step frontend does.
+    No windows (a rank's empty share of a mixed batch) launch nothing."""
+    if pcm.shape[0] == 0:
+        return torch.zeros((0, features_length, FC.NUM_CHANNELS), device=pcm.device)
     feats = frontend_batch(pcm, hop_samples // 16)
     if feats.shape[1] != features_length:
         raise ValueError(f"{pcm.shape[1]} samples gave {feats.shape[1]} frames, "
@@ -491,12 +510,15 @@ def audio_features(pcm: torch.Tensor, hop_samples: int, features_length: int) ->
 
 
 def draw_audio_windows(data: PackedAudioData, generator: torch.Generator, batch_size: int,
-                       features_length: int):
+                       features_length: int, rows: slice | None = None):
     """The raw-audio step's draw and gather: a Gumbel-max provider, clip and
     start uniforms from ``generator``, then ``audio_windows_from_draws``.
-    Returns (PCM [B, (L + wc - 1) * hop] int16, labels [B], weights [B])."""
+    Returns (PCM [B, (L + wc - 1) * hop] int16, labels [B], weights [B]), or
+    the ``rows`` of them."""
     p = data.provider_logits.shape[0]
     u = torch.rand((batch_size, p + 2), generator=generator, device=data.device)
+    if rows is not None:
+        u = u[rows]
     prov = torch.argmax(data.provider_logits - torch.log(-torch.log(u[:, :p])), dim=1)
     return audio_windows_from_draws(data, prov, u[:, p], u[:, p + 1], features_length)
 
@@ -504,11 +526,12 @@ def draw_audio_windows(data: PackedAudioData, generator: torch.Generator, batch_
 def sample_audio_feature_batch(data: PackedAudioData, generator: torch.Generator,
                                batch_size: int, features_length: int,
                                time_mask_max_size: int = 0, time_mask_count: int = 0,
-                               freq_mask_max_size: int = 0, freq_mask_count: int = 0):
+                               freq_mask_max_size: int = 0, freq_mask_count: int = 0,
+                               rows: slice | None = None):
     """One raw-audio training batch on the card: the draw and chunk gather
     (``draw_audio_windows``), the frontend (``audio_features``) and
     SpecAugment.  Returns (features [B, L, 40] float32 in [0, 26], labels
-    [B], weights [B]).
+    [B], weights [B]), or the ``rows`` of them.
 
     The frontend runs on the sampled window only, so the noise estimate
     starts fresh at the window start (the reference's on-the-fly mode
@@ -516,11 +539,11 @@ def sample_audio_feature_batch(data: PackedAudioData, generator: torch.Generator
     is a few frames of gain ramp at the start, like a clip recorded from
     silence).
     """
-    pcm, labels, weights = draw_audio_windows(data, generator, batch_size, features_length)
+    pcm, labels, weights = draw_audio_windows(data, generator, batch_size, features_length, rows)
     feats = audio_features(pcm, data.hop_samples, features_length)
     if time_mask_count or freq_mask_count:
         feats = apply_spec_augment(generator, feats, time_mask_max_size, time_mask_count,
-                                   freq_mask_max_size, freq_mask_count)
+                                   freq_mask_max_size, freq_mask_count, batch_size, rows)
     return feats, labels, weights
 
 
@@ -578,23 +601,34 @@ def mixed_batch_sizes(batch_size: int, audio_fraction: float) -> tuple[int, int]
 def sample_mixed_batch(data: PackedMixedData, generator: torch.Generator, batch_size: int,
                        features_length: int, time_mask_max_size: int = 0,
                        time_mask_count: int = 0, freq_mask_max_size: int = 0,
-                       freq_mask_count: int = 0):
+                       freq_mask_count: int = 0, rows: slice | None = None):
     """One mixed batch on the card: the raw-audio sub-batch (windows -> the
-    frontend kernel) followed by the spectrogram sub-batch."""
+    frontend kernel) followed by the spectrogram sub-batch; or the ``rows``
+    of it, each sub-batch drawn whole and cut to its part of the slice."""
     b_audio, b_spec = mixed_batch_sizes(batch_size, data.audio_fraction)
     masks = dict(time_mask_max_size=time_mask_max_size, time_mask_count=time_mask_count,
                  freq_mask_max_size=freq_mask_max_size, freq_mask_count=freq_mask_count)
-    fa, la, wa = sample_audio_feature_batch(data.audio, generator, b_audio, features_length, **masks)
-    fs, ls, ws = sample_batch(data.spec, generator, b_spec, features_length, **masks)
+    rows_audio = rows_spec = None
+    if rows is not None:
+        lo, hi, _ = rows.indices(batch_size)
+        rows_audio = slice(min(lo, b_audio), min(hi, b_audio))
+        rows_spec = slice(max(lo, b_audio) - b_audio, max(hi, b_audio) - b_audio)
+    fa, la, wa = sample_audio_feature_batch(data.audio, generator, b_audio, features_length,
+                                            rows=rows_audio, **masks)
+    fs, ls, ws = sample_batch(data.spec, generator, b_spec, features_length, rows=rows_spec,
+                              **masks)
     return torch.cat([fa, fs]), torch.cat([la, ls]), torch.cat([wa, ws])
 
 
 def sample_any(packed, generator: torch.Generator, batch_size: int, features_length: int,
-               **masks):
+               rows: slice | None = None, **masks):
     """One training batch from any packed corpus, by its kind (the JAX
-    package's make_train_step dispatch, train/loop.py:164-203)."""
+    package's make_train_step dispatch, train/loop.py:164-203); ``rows``
+    cuts it to a slice of the batch (see the module's docstring)."""
     if isinstance(packed, PackedAudioData):
-        return sample_audio_feature_batch(packed, generator, batch_size, features_length, **masks)
+        return sample_audio_feature_batch(packed, generator, batch_size, features_length,
+                                          rows=rows, **masks)
     if isinstance(packed, PackedMixedData):
-        return sample_mixed_batch(packed, generator, batch_size, features_length, **masks)
-    return sample_batch(packed, generator, batch_size, features_length, **masks)
+        return sample_mixed_batch(packed, generator, batch_size, features_length, rows=rows,
+                                  **masks)
+    return sample_batch(packed, generator, batch_size, features_length, rows=rows, **masks)

@@ -2,9 +2,13 @@
 
 The streamed ambient ROC (``streaming_model_roc``) and the test-set accuracy
 (``model_accuracy``) over the data store's evaluation sets, one streaming
-scan per track.  One process and one device: the JAX package's mesh path,
-its per-process track sharding and its count all-gather have no counterpart
-yet (ROADMAP queue item 10).
+scan per track.  Over a mesh the ROC's tracks are scanned as the JAX
+package scans them there: bucketed and stacked, each rank scanning its
+block of every stack (``parallel/eval.py``), so that every rank holds every
+track's probabilities and returns the same global curve.  A ``stream_fn``
+over a mesh scores tracks ``[r::D]`` on rank r, and the per-cutoff accept
+counts, hours and detections are summed over the ranks (the JAX package's
+``_global_sum``).
 """
 
 from __future__ import annotations
@@ -71,25 +75,50 @@ def positive_detection_counts(max_probs, cutoffs):
     return detected.astype(np.float64), len(max_probs)
 
 
+def _global_sum(values: np.ndarray, mesh) -> np.ndarray:
+    """``values`` summed over the mesh's ranks (as they are without one)."""
+    if mesh is None:
+        return values
+    return mesh.all_reduce(torch.as_tensor(values, dtype=torch.float64,
+                                           device=mesh.device)).cpu().numpy()
+
+
 def streaming_model_roc(bundle, model, feature_handler, config: dict, folder: str | None = None,
                         data_set: str = "testing", ambient_set: str = "testing_ambient",
                         sliding_window_length: int = 5, ignore_slices_after_accept: int = 25,
-                        accuracy_name: str = "streaming_roc.txt", stream_fn=None) -> dict:
+                        accuracy_name: str = "streaming_roc.txt", stream_fn=None,
+                        mesh=None) -> dict:
     """False-accepts-per-hour vs false-rejection ROC of the streaming model
     (reference tflite_streaming_model_roc, test.py:293-403).
 
     Returns a dict with the AUC, the curve's coordinates, faph and the
     cutoff table.  ``stream_fn(model, x)`` can replace the source of the
-    probabilities (an int8 runner, say) under the same metric math.
+    probabilities (an int8 runner, say) under the same metric math.  With a
+    ``mesh`` (parallel/mesh.py) each rank scans its share of the tracks and
+    every rank returns the global curve (module docstring); rank 0 writes
+    ``folder``.
     """
+    rank, size = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    batched = mesh is not None and stream_fn is None
+    sum_mesh = None if batched else mesh  # the ranks' counts to sum, where they differ
+
+    def track_probs(tracks):
+        """The probabilities of the tracks this rank counts."""
+        if batched:
+            from microwakeword_tpu_torch.parallel.eval import batched_track_probs
+
+            return batched_track_probs(bundle, model, list(tracks), mesh)
+        return [_track_stream_probs(bundle, model, t, stream_fn) for t in tracks[rank::size]]
+
     ambient_tracks, _, _ = feature_handler.get_data(
         ambient_set, batch_size=config.get("batch_size", 128),
         features_length=config["spectrogram_length"], truncation_strategy="none")
     cutoffs = R.DEFAULT_CUTOFFS
-    accept_counts, hours = ambient_accept_counts(
-        [_track_stream_probs(bundle, model, t, stream_fn) for t in ambient_tracks], cutoffs,
-        ignore_slices_after_accept, sliding_window_length,
+    local_counts, local_hours = ambient_accept_counts(
+        track_probs(ambient_tracks), cutoffs, ignore_slices_after_accept, sliding_window_length,
         stride=config.get("stride", 1), step_s=config.get("window_step_ms", 10) / 1000.0)
+    combined = _global_sum(np.concatenate([local_counts, [local_hours]]), sum_mesh)
+    accept_counts, hours = combined[:-1], float(combined[-1])
     faph = accept_counts / hours if hours > 0 else np.zeros(len(cutoffs))
 
     test_x, test_y, _ = feature_handler.get_data(
@@ -97,13 +126,14 @@ def streaming_model_roc(bundle, model, feature_handler, config: dict, folder: st
         features_length=config["spectrogram_length"], truncation_strategy="none")
     positives = [s for s, label in zip(test_x, test_y) if label > 0.5]
     positive_max_probs = []
-    for track in positives:
-        probs = _track_stream_probs(bundle, model, track, stream_fn)
+    for probs in track_probs(positives):
         ma = R.moving_average(probs[ignore_slices_after_accept:], sliding_window_length)
         if ma.numel():
             positive_max_probs.append(float(ma.max()))
 
-    detected, n_pos = positive_detection_counts(positive_max_probs, cutoffs)
+    detected, n_local = positive_detection_counts(positive_max_probs, cutoffs)
+    combined = _global_sum(np.concatenate([detected, [float(n_local)]]), sum_mesh)
+    detected, n_pos = combined[:-1], int(combined[-1])
     fnr = 1.0 - detected / n_pos if n_pos > 0 else np.ones(len(cutoffs))
 
     xs, ys, cs = R.generate_roc_curve(faph, fnr, cutoffs)
@@ -117,7 +147,7 @@ def streaming_model_roc(bundle, model, feature_handler, config: dict, folder: st
         "frr_at_cutoffs": np.asarray(fnr),
         "positive_count": int(n_pos),
     }
-    if folder:
+    if folder and rank == 0:
         os.makedirs(folder, exist_ok=True)
         with open(os.path.join(folder, accuracy_name), "w") as f:
             f.write(f"AUC {auc:.5f}\n")

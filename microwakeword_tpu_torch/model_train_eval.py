@@ -18,6 +18,15 @@ lines run unchanged) writes ``torch_export/model.mwwt``, the serialized
 ``--test_tflite_*`` flags export and score the ``.tflite`` files (streaming
 or not, float or int8; the streaming int8 one with its ESPHome manifest),
 which needs TensorFlow on the host.
+
+``--mesh N`` trains and evaluates data parallel over N ranks
+(``parallel/``): under ``torchrun`` the ranks are its processes (RANK,
+WORLD_SIZE, LOCAL_RANK); otherwise ``run`` starts N workers itself
+(``parallel.mesh.launch``, spawn).  Ranks on cards (one per card) talk over
+NCCL; ``--device cpu --mesh N`` runs N gloo ranks on the CPU.  N may not
+exceed the visible cards and must divide the batch; ``auto`` takes the
+largest such count of two or more cards, else one device, and ``off`` one
+device.  Rank 0 writes every file and returns the result.
 """
 
 from __future__ import annotations
@@ -95,8 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Export train_dir/torch_export/model.mwwt, the serialized "
                              "torch.export programs (export/torch_export.py)")
     parser.add_argument("--mesh", type=str, default="auto",
-                        help="'auto' or 'off' (one device), or a device count; more than "
-                             "one device is not ported yet (ROADMAP queue item 10)")
+                        help="'auto' (every visible card that divides the batch, one device "
+                             "below two), 'off' (one device), or a rank count N: data "
+                             "parallel over N ranks (NCCL on cards, gloo with --device cpu)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to train and evaluate on: cuda (default) or cpu")
     sub = parser.add_subparsers(dest="model_name", required=True)
@@ -139,16 +149,6 @@ def model_config_from_flags(flags):
             spectrogram_length=10_000,  # placeholder; derive_config replaces it
         )
     raise ValueError(f"unknown model {flags.model_name!r}")
-
-
-def _mesh_devices(mesh: str) -> int:
-    if mesh in ("auto", "off"):
-        return 1
-    count = int(mesh)
-    if count > 1:
-        raise NotImplementedError(
-            f"--mesh {count}: more than one device is not ported yet: ROADMAP queue item 10")
-    return count
 
 
 def export_native(bundle, model, feature_handler, config: dict, native_dir: str) -> dict:
@@ -199,14 +199,20 @@ def run(flags, config: dict) -> dict:
     as the JAX CLI does after reading its YAML.  Returns {"history",
     "streaming_roc", "accuracy", "native", "native_quantized_roc",
     "exported", "tflite"} (None where not run; "tflite" maps each
-    ``--test_tflite_*`` flag set to its file)."""
+    ``--test_tflite_*`` flag set to its file).  Over a mesh every rank
+    trains and scores the streamed ROC; rank 0 then evaluates and exports
+    alone, and its result is returned."""
     from microwakeword_tpu_torch.data.store import FeatureHandler
     from microwakeword_tpu_torch.evaluate.streaming_eval import model_accuracy, streaming_model_roc
     from microwakeword_tpu_torch.models import build_model
+    from microwakeword_tpu_torch.parallel import mesh as M
     from microwakeword_tpu_torch.train import loop as training
 
-    mesh = _mesh_devices(flags.mesh)
-    device = resolve_device(flags.device)
+    size = M.mesh_size(flags.mesh, int(config.get("batch_size", 128)), flags.device)
+    if size and not M.in_process_group():
+        return M.launch(run, size, flags.device, flags, config)[0]
+    mesh = M.create_mesh(size, flags.device) if size else None
+    device = mesh.device if mesh is not None else resolve_device(flags.device)
     bundle = build_model(flags.model_name, config["model_config"])
     feature_handler = FeatureHandler(config, device)
 
@@ -225,8 +231,11 @@ def run(flags, config: dict) -> dict:
     if flags.test_streaming and feature_handler.get_mode_size("testing_ambient"):
         out["streaming_roc"] = streaming_model_roc(
             bundle, model, feature_handler, config, folder=os.path.join(train_dir, "streaming"),
-            accuracy_name="streaming_roc.txt")
-        print(f"streaming ROC AUC: {out['streaming_roc']['auc']:.5f}")
+            accuracy_name="streaming_roc.txt", mesh=mesh)
+        if mesh is None or mesh.is_main:
+            print(f"streaming ROC AUC: {out['streaming_roc']['auc']:.5f}")
+    if mesh is not None and not mesh.is_main:
+        return out
 
     if flags.test_tf_nonstreaming and feature_handler.get_mode_size("testing"):
         out["accuracy"] = model_accuracy(
@@ -277,7 +286,7 @@ def main(argv=None) -> dict:
     flags = build_parser().parse_args(argv)
     config = load_config(flags.training_config, model_config_from_flags(flags))
     config["flags"] = vars(flags)
-    if flags.train:
+    if flags.train and int(os.environ.get("RANK", 0)) == 0:  # torchrun's rank 0, or alone
         os.makedirs(config["train_dir"], exist_ok=True)
         with open(os.path.join(config["train_dir"], "training_config.yaml"), "w") as f:
             dump = {k: v for k, v in config.items() if k != "model_config"}

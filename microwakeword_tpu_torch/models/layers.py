@@ -234,7 +234,14 @@ class BatchNorm(nn.Module):
     together) with flax's fast variance, ``max(0, E[x^2] - E[x]^2)``, and
     updates the running ones as ``0.99 * running + 0.01 * batch`` with that
     biased variance (``torch.nn.BatchNorm1d`` uses the unbiased one).
+
+    ``stats_reduce``, where a data-parallel train step sets it
+    (``parallel/train_step.py``), maps this rank's ``E[x]`` and ``E[x^2]``
+    to the global batch's, so that the statistics are the global batch's as
+    in the JAX package's sharded step.
     """
+
+    stats_reduce = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -253,8 +260,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            if self.stats_reduce is not None:
+                mean, mean_sq = self.stats_reduce(mean, mean_sq)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)

@@ -1,8 +1,12 @@
-"""Training several models at once on one card (port of parallel/).
+"""Training over several devices and several models at once (port of
+parallel/).
 
-Only population training is ported (``population``); the JAX package's
-multi-device modules (``mesh``, ``train_step``, ``corpus``, ``eval``) are
-ROADMAP queue item 10.
+``mesh`` joins the ranks of a data-parallel group (one process per device,
+torch.distributed) and holds their collectives; ``train_step`` is one rank's
+step on its block of the global batch; ``corpus`` replicates or shards the
+training corpus over the ranks; ``eval`` scans tracks over them;
+``population`` trains N models of one architecture at once on one card, or
+split over the ranks.
 """
 
 from microwakeword_tpu_torch.parallel.population import (  # noqa: F401

@@ -30,6 +30,13 @@ Generators: member i draws from a device generator seeded by
 ``bundle.init(torch.Generator().manual_seed(seeds[i]))``, as ``train()``
 initialises a solo model; so a member of a population equals a population of
 one with the same seed (tests/test_torch_population.py).
+
+Over a mesh of D ranks (``parallel/mesh.py``) rank r trains the contiguous
+block of N/D members [r N/D, (r+1) N/D) with their own generators, so each
+member follows the run it has in the solo population; with ``share_batch``
+every rank also keeps member 0's generator, whose batches every member
+trains on.  History records, validation records and the selection are
+gathered from every rank, and every rank returns the whole population.
 """
 
 from __future__ import annotations
@@ -88,7 +95,8 @@ class PopulationTrainStep:
     """
 
     def __init__(self, bundle, stacked: dict, packed, batch_size: int, features_length: int,
-                 generators, steps_per_call: int = 1, share_batch: bool = False):
+                 generators, steps_per_call: int = 1, share_batch: bool = False,
+                 lead_generator: torch.Generator | None = None):
         self.bundle = bundle
         self.packed = packed
         self.batch_size = int(batch_size)
@@ -96,6 +104,9 @@ class PopulationTrainStep:
         self.steps_per_call = int(steps_per_call)
         self.share_batch = bool(share_batch)
         self.generators = list(generators)
+        # share_batch's batches: member 0's generator, which a rank without
+        # member 0 keeps in step by drawing member 0's keep masks too
+        self.lead = self.generators[0] if lead_generator is None else lead_generator
         first = next(iter(stacked.values()))
         self.device = first.device
         self.n = int(first.shape[0])
@@ -157,6 +168,8 @@ class PopulationTrainStep:
         if self.keep_prob is None:
             return None
         shape = (self.batch_size, self.dropout_width)
+        if self.lead is not self.generators[0]:
+            draw_keep_mask(shape, self.keep_prob, self.lead, self.device)
         return torch.stack([draw_keep_mask(shape, self.keep_prob, g, self.device)
                             for g in self.generators])
 
@@ -165,8 +178,7 @@ class PopulationTrainStep:
         first three [B, ...] with share_batch, else [N, B, ...]."""
         b, length = self.batch_size, self.features_length
         if self.share_batch:
-            feats, labels, pens = S.sample_batch(self.packed, self.generators[0], b, length,
-                                                 **masks)
+            feats, labels, pens = S.sample_batch(self.packed, self.lead, b, length, **masks)
             return feats, labels, pens, self._keep_masks()
         m = masks["time_mask_count"] + masks["freq_mask_count"]
         u_win, u_aug, keep = [], [], []
@@ -238,11 +250,13 @@ class PopulationTrainStep:
 
 def make_population_train_step(bundle, packed, batch_size: int, features_length: int,
                                stacked: dict, generators, steps_per_call: int = 1,
-                               share_batch: bool = False) -> PopulationTrainStep:
+                               share_batch: bool = False,
+                               lead_generator: torch.Generator | None = None
+                               ) -> PopulationTrainStep:
     """The member-batched step over ``packed`` for the population ``stacked``;
     see PopulationTrainStep."""
     return PopulationTrainStep(bundle, stacked, packed, batch_size, features_length, generators,
-                               steps_per_call, share_batch)
+                               steps_per_call, share_batch, lead_generator)
 
 
 def make_population_eval_fn(bundle, n_models: int, eval_batch: int = 512):
@@ -305,27 +319,41 @@ def train_population(
     best-checkpoint rule (``metrics.is_new_best``) per member; the return
     gains {"best_variables": stacked best states on the CPU, "best_step":
     [N], "leaderboard": rows best first by (min metric <= target, max
-    metric)}.  ``mesh`` above one device raises (ROADMAP queue item 10).
+    metric)}.  ``mesh`` (a ``parallel.mesh.Mesh`` or a rank count; None or
+    1: one device) splits the members over its ranks; ``packed`` must then
+    be the same corpus on every rank.
     """
+    from microwakeword_tpu_torch.parallel.mesh import resolve_mesh
+
     dev = resolve_device(device)
-    if mesh not in (None, 1):
-        raise NotImplementedError(
-            f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 10, multi-GPU")
+    mesh = resolve_mesh(mesh, dev)
     seeds = list(seeds) if seeds is not None else list(range(n_models))
     if len(seeds) != n_models:
         raise ValueError(f"{len(seeds)} seeds for {n_models} members")
+    # this rank's members: all of them on one device
+    block = slice(0, n_models) if mesh is None else mesh.rows(n_models)
+    if mesh is not None:
+        dev = mesh.device
+    n_local = block.stop - block.start
     lrs = _per_member(learning_rates, 0.001, n_models)
     pos_w = _per_member(positive_class_weights, 1.0, n_models)
     neg_w = _per_member(negative_class_weights, 1.0, n_models)
-    hyper = tuple(torch.from_numpy(v).to(dev) for v in (lrs, pos_w, neg_w))
+    hyper = tuple(torch.from_numpy(v[block]).to(dev) for v in (lrs, pos_w, neg_w))
     sa = {"time_mask_max_size": 0, "time_mask_count": 0, "freq_mask_max_size": 0,
           "freq_mask_count": 0, **(spec_augment or {})}
 
-    generators = [torch.Generator(device=dev).manual_seed(member_seed(sample_seed, s))
-                  for s in seeds]
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(member_seed(sample_seed, seed))
+
+    lead = generator(seeds[0]) if share_batch and block.start > 0 else None
     pop = make_population_train_step(bundle, packed, batch_size, features_length,
-                                      init_population(bundle, seeds, dev), generators,
-                                      steps_per_call, share_batch)
+                                      init_population(bundle, seeds[block], dev),
+                                      [generator(s) for s in seeds[block]], steps_per_call,
+                                      share_batch, lead)
+
+    def gathered(local: list) -> list:
+        """Every rank's list of per-member values, concatenated."""
+        return local if mesh is None else sum(mesh.all_gather_object(local), [])
 
     select = validation is not None
     best = None
@@ -334,16 +362,16 @@ def train_population(
         val_y = np.asarray(validation[1], np.float32).reshape(-1)
         amb_x = (torch.as_tensor(np.asarray(ambient, np.float32), device=dev)
                  if ambient is not None and len(ambient) else None)
-        eval_probs = make_population_eval_fn(bundle, n_models)
-        best = {"min": np.full(n_models, 10000.0), "max": np.zeros(n_models),
-                "step": np.zeros(n_models, np.int64), "metrics": [None] * n_models,
+        eval_probs = make_population_eval_fn(bundle, n_local)
+        best = {"min": np.full(n_local, 10000.0), "max": np.zeros(n_local),
+                "step": np.zeros(n_local, np.int64), "metrics": [None] * n_local,
                 "state": None}
 
     def run_selection(step: int) -> list:
         vp = eval_probs(pop.state(), val_x)  # [N, M]
         ap = eval_probs(pop.state(), amb_x) if amb_x is not None else None
         improved, records = [], []
-        for i in range(n_models):
+        for i in range(n_local):
             vm = M.validation_metrics(vp[i], val_y, ap[i] if ap is not None else None,
                                       ambient_hours)
             records.append(vm)
@@ -354,7 +382,9 @@ def train_population(
                 best["min"][i], best["max"][i], best["step"][i] = cur_min, cur_max, step
                 best["metrics"][i] = vm
                 improved.append(i)
-        if improved:
+        # the first improvement of any member snapshots every member
+        any_improved = any(gathered([bool(improved)]))
+        if best["state"] is None and any_improved or improved:
             # snapshot the improved members' weights on the host (they are small)
             host = {k: v.detach().to("cpu", copy=True) for k, v in pop.state().items()}
             if best["state"] is None:
@@ -363,7 +393,7 @@ def train_population(
                 idx = torch.as_tensor(improved)
                 for k, v in best["state"].items():
                     v[idx] = host[k][idx]
-        return records
+        return gathered(records)
 
     history = []
     step = 0
@@ -376,14 +406,26 @@ def train_population(
         metrics = pop.step(*hyper, steps=n, **sa)
         step += n
         if (eval_interval and step % eval_interval == 0) or step == steps:
+            if mesh is not None:
+                metrics = {k: mesh.gather_rows(v) for k, v in metrics.items()}
             record = {"step": step} | {k: v.cpu().numpy() for k, v in metrics.items()}
             if select:
                 record["validation"] = run_selection(step)
             history.append(record)
 
     stacked = {k: v.detach().clone() for k, v in pop.state().items()}
+    if mesh is not None:
+        stacked = {k: mesh.gather_rows(v) for k, v in stacked.items()}
     if not select:
         return stacked, history
+    if best["state"] is None:  # no eval improved on the initial bounds
+        best["state"] = {k: v.detach().to("cpu", copy=True) for k, v in pop.state().items()}
+    if mesh is not None:
+        parts = mesh.all_gather_object({k: best[k] for k in ("min", "max", "step", "state")})
+        for k in ("min", "max", "step"):
+            best[k] = np.concatenate([p[k] for p in parts])
+        best["state"] = {k: torch.cat([p["state"][k] for p in parts]) for k in best["state"]}
+        best["metrics"] = gathered(best["metrics"])
     order = sorted(range(n_models), key=lambda i: (
         0 if best["min"][i] <= target_minimization else 1, -best["max"][i], best["min"][i]))
     leaderboard = [
@@ -392,8 +434,6 @@ def train_population(
          "maximization": float(best["max"][i]), "metrics": best["metrics"][i]}
         for i in order
     ]
-    if best["state"] is None:  # no eval improved on the initial bounds
-        best["state"] = {k: v.detach().to("cpu", copy=True) for k, v in stacked.items()}
     selection = {"best_variables": best["state"], "best_step": best["step"],
                  "leaderboard": leaderboard}
     return stacked, history, selection

@@ -17,7 +17,10 @@ Outputs under ``train_dir``: ``member_XX/best_weights.pt`` (the port's weight
 format, for ``train.loop.load_weights``), ``leaderboard.json`` (the JAX
 sweep's keys) and ``sweep_config.yaml``.  ``main`` parses the flags and the
 YAML and writes ``sweep_config.yaml``; ``run`` does the rest and needs no
-PyYAML.  ``--mesh`` above one device raises (ROADMAP queue item 10).
+PyYAML.  ``--mesh D`` splits the ``--n_models`` members over D ranks in
+blocks of n_models / D (under ``torchrun`` or self-started, as in
+``model_train_eval``); ``auto`` takes the largest count of two or more
+visible cards that divides ``--n_models``.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--steps", type=int, default=0,
                         help="override total steps (default: sum of the config's training_steps)")
     parser.add_argument("--mesh", type=str, default="auto",
-                        help="'auto' or 'off' (one device), or a device count; more than one "
-                             "device is not ported yet (ROADMAP queue item 10)")
+                        help="'auto' (every visible card that divides n_models, one device "
+                             "below two), 'off' (one device), or a rank count N: the members "
+                             "split over N ranks (NCCL on cards, gloo with --device cpu)")
     parser.add_argument("--share_batch", type=int, default=1,
                         help="1 (default): every member trains on member 0's batch stream (one "
                              "gather per step serves the population; members are not "
@@ -67,13 +71,20 @@ def run(flags, config: dict) -> dict:
     """Trains the population and writes the members' weights and the
     leaderboard.  Returns {"sweep": the values sweep_config.yaml records,
     "history", "selection" (None without validation data), "variables"
-    (the final stacked state)}."""
+    (the final stacked state)}; over a mesh rank 0 writes the files and its
+    result is returned."""
     from microwakeword_tpu_torch.data.store import FeatureHandler
     from microwakeword_tpu_torch.models import build_model
+    from microwakeword_tpu_torch.parallel import mesh as M
+    from microwakeword_tpu_torch.parallel.corpus import broadcast_packed
     from microwakeword_tpu_torch.parallel.population import member_variables, train_population
 
-    mesh = CLI._mesh_devices(flags.mesh)
-    dev = resolve_device(flags.device)
+    size = M.mesh_size(flags.mesh, flags.n_models, flags.device)
+    if size and not M.in_process_group():
+        return M.launch(run, size, flags.device, flags, config)[0]
+    mesh = M.create_mesh(size, flags.device) if size else None
+    dev = mesh.device if mesh is not None else resolve_device(flags.device)
+    main = mesh is None or mesh.is_main
     n = flags.n_models
     bundle = build_model(flags.model_name, config["model_config"])
     fh = FeatureHandler(config, dev)
@@ -87,7 +98,10 @@ def run(flags, config: dict) -> dict:
     steps = flags.steps or sum(config.get("training_steps") or [20000])
     batch_size = int(config.get("batch_size", 128))
     features_length = int(config["spectrogram_length"])
-    packed = fh.pack_training(dev)
+    if mesh is None:
+        packed = fh.pack_training(dev)
+    else:  # every rank's members train on rank 0's corpus
+        packed = broadcast_packed(fh.pack_training(dev) if main else None, mesh)
 
     validation, ambient, ambient_hours = None, None, 0.0
     if fh.get_mode_size("validation") > 0:
@@ -116,6 +130,17 @@ def run(flags, config: dict) -> dict:
         device=dev)
     variables, history = result[:2]
     selection = result[2] if validation is not None else None
+    sweep = {
+        "n_models": n,
+        "seeds": [int(s) for s in seeds],
+        "learning_rates": [float(v) for v in lrs],
+        "positive_class_weights": [float(v) for v in pos_w],
+        "negative_class_weights": [float(v) for v in neg_w],
+        "steps": steps,
+    }
+    out = {"sweep": sweep, "history": history, "selection": selection, "variables": variables}
+    if not main:
+        return out
 
     train_dir = config["train_dir"]
     os.makedirs(train_dir, exist_ok=True)
@@ -138,15 +163,7 @@ def run(flags, config: dict) -> dict:
             print(f"  member {row['member']:2d} seed={row['seed']} "
                   f"lr={row['learning_rate']:.4g} best_step={row['best_step']} "
                   f"min={row['minimization']:.3f} max={row['maximization']:.3f}")
-    sweep = {
-        "n_models": n,
-        "seeds": [int(s) for s in seeds],
-        "learning_rates": [float(v) for v in lrs],
-        "positive_class_weights": [float(v) for v in pos_w],
-        "negative_class_weights": [float(v) for v in neg_w],
-        "steps": steps,
-    }
-    return {"sweep": sweep, "history": history, "selection": selection, "variables": variables}
+    return out
 
 
 def main(argv=None) -> int:
@@ -157,8 +174,9 @@ def main(argv=None) -> int:
     flags = build_parser().parse_args(argv)
     config = load_config(flags.training_config, CLI.model_config_from_flags(flags))
     out = run(flags, config)
-    with open(os.path.join(config["train_dir"], "sweep_config.yaml"), "w") as f:
-        yaml.safe_dump(out["sweep"], f)
+    if int(os.environ.get("RANK", 0)) == 0:  # torchrun's rank 0, or alone
+        with open(os.path.join(config["train_dir"], "sweep_config.yaml"), "w") as f:
+            yaml.safe_dump(out["sweep"], f)
     return 0
 
 

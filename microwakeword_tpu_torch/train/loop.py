@@ -7,7 +7,10 @@ both, and ``pool_refresh_steps`` refreshes the audio pools from a host thread
 (``data/refresh.py``).  A spectrogram corpus over the card's budget, or any
 with config ``corpus_residency: host``, stays in host RAM and each step's
 batch is drawn and gathered on the host and copied to the card
-(``data/host_stream.py``).
+(``data/host_stream.py``).  Over a data-parallel mesh (``mesh``: one rank per
+process, ``parallel/``) each rank computes its block of the global batch,
+the corpus is replicated or sharded (config ``corpus_sharding``), validation
+rows are split over the ranks, and only rank 0 writes files.
 
 Schedules are padded with their last entry, Adam runs on probabilities'
 weighted BCE, validation runs every ``eval_step_interval`` steps and writes
@@ -21,8 +24,9 @@ Checkpoints keep the JAX package's file stems in the port's own format,
 The JAX package's migration of per-leaf Adam checkpoints has no port-side
 checkpoints to migrate and is left out.  Options of the JAX ``train()`` that
 this port does not carry raise NotImplementedError naming the ROADMAP queue
-item that brings them; TensorBoard summaries are not written (metrics.jsonl
-holds every eval's record).
+item that brings them (pool refresh over more than one rank, item 13);
+TensorBoard summaries are not written (metrics.jsonl holds every eval's
+record).
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ from microwakeword_tpu_torch.data.host_stream import (
 )
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.device import resolve_device
+from microwakeword_tpu_torch.models.inception import draw_keep_mask
+from microwakeword_tpu_torch.models.layers import BatchNorm
 from microwakeword_tpu_torch.train import metrics as M
 
 EPS = 1e-7  # Keras BinaryCrossentropy epsilon
@@ -117,11 +123,16 @@ class TrainStep:
     ``data/host_stream.py``), with a leading [steps] axis for several
     sub-steps.
     Either reports the last sub-step's metrics (0-dim tensors).
+
+    With a ``mesh`` (``parallel/mesh.py``) this is one rank's step of the
+    data-parallel step on the global batch of ``batch_size`` rows
+    (``parallel/train_step.py`` says how it stays the solo step); without
+    one, ``rows`` is None, the share is 1 and no collective runs.
     """
 
     def __init__(self, bundle, model: torch.nn.Module, packed,
                  batch_size: int, features_length: int, steps_per_call: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None, sharded: bool = False):
         self.bundle = bundle
         self.model = model
         self.packed = packed
@@ -141,6 +152,26 @@ class TrainStep:
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.mesh = mesh
+        self.sharded = bool(sharded)
+        # this rank's block of the global batch (None: all of it) and its
+        # share of the batch: 1.0 on one rank, a power of two (exact) on 2,
+        # 4, 8
+        self.rows = None if mesh is None else mesh.rows(self.batch_size)
+        self.local_batch = self.batch_size // (1 if mesh is None else mesh.size)
+        self.share = self.local_batch / self.batch_size
+        self.batch_norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+        self.keep_prob = None
+        if mesh is not None:
+            with torch.no_grad():
+                mesh.broadcast(self.flat)
+                for buf in model.buffers():
+                    mesh.broadcast(buf)
+            for bn in self.batch_norms:
+                bn.stats_reduce = self._reduce_stats
+            dropout = float(getattr(bundle.config, "dropout", 0.0) or 0.0)
+            # Inception's dropout acts on the flattened tail that feeds Dense_0
+            self.keep_prob = 1.0 - dropout if dropout > 0 else None
 
     # ---- optimizer state ----------------------------------------------
     def opt_state(self) -> dict:
@@ -164,13 +195,38 @@ class TrainStep:
         denom = torch.sqrt(self.nu / (1.0 - torch.pow(ADAM_B2, count))).add_(ADAM_EPS)
         self.flat.add_(mu_hat.div_(denom).mul_(-learning_rate))
 
+    def _reduce_stats(self, mean: torch.Tensor, mean_sq: torch.Tensor):
+        """BatchNorm's hook over a mesh: this rank's E[x] and E[x^2] times its
+        share, summed over the ranks (one all-reduce in each pass)."""
+        both = self.mesh.all_reduce_autograd(torch.cat([mean, mean_sq]) * self.share)
+        return both[: mean.shape[0]], both[mean.shape[0] :]
+
+    def _keep_mask(self) -> torch.Tensor | None:
+        """Over a mesh, this rank's rows of the dropout keep mask, drawn after
+        the batch as the solo step's forward draws it; None where the forward
+        draws its own (no mesh) or has no dropout."""
+        if self.keep_prob is None:
+            return None
+        width = self.model.Dense_0.weight.shape[1]
+        if self.sharded:
+            return draw_keep_mask((self.local_batch, width), self.keep_prob, self.generator,
+                                  self.device)
+        return draw_keep_mask((self.batch_size, width), self.keep_prob, self.generator,
+                              self.device)[self.rows]
+
     def _sub_step(self, feats, labels, penalties, learning_rate: float,
                   positive_class_weight: float, negative_class_weight: float):
         weights = penalties * torch.where(labels > 0.5, positive_class_weight, negative_class_weight)
-        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype), self.generator)
+        keep = self._keep_mask()
+        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype),
+                                          self.generator if keep is None else keep)
         loss = weighted_bce(probs, labels, weights)
+        if self.mesh is not None:
+            loss = loss * self.share  # the ranks' losses sum to the global batch mean
         grads = torch.autograd.grad(loss, self.params)
         torch.cat([g.reshape(-1) for g in grads], out=self.grad)
+        if self.mesh is not None:
+            self.mesh.all_reduce(self.grad)
         with torch.no_grad():
             self._adam(learning_rate)
         return probs.detach(), labels, loss.detach()
@@ -183,34 +239,48 @@ class TrainStep:
                                      "negative_class_weight")}
         return masks, opt
 
-    @staticmethod
-    def _report(last) -> dict:
+    def _report(self, last) -> dict:
+        """binary_metrics and the loss of the batch; over a mesh, of the
+        global batch: one gather of each rank's [probs | labels] rows and
+        loss, in rank order."""
         probs, labels, loss = last
+        if self.mesh is not None:
+            local = torch.cat([torch.stack([probs.reshape(-1), labels.reshape(-1).to(probs.dtype)],
+                                           dim=1).reshape(-1), loss.reshape(1)])
+            glob = self.mesh.gather_rows(local[None])
+            rows = glob[:, :-1].reshape(-1, 2)
+            probs, labels, loss = rows[:, :1], rows[:, 1], glob[:, -1].sum()
         metrics = M.binary_metrics(probs, labels)
         metrics["loss"] = loss
         return metrics
 
     def step(self, steps: int | None = None, **phase) -> dict:
         """``steps`` (default steps_per_call) sub-steps on batches sampled
-        on the card; the last sub-step's metrics."""
+        on the card; the last sub-step's metrics.  Over a mesh a replicated
+        corpus draws the global batch and computes this rank's rows; a
+        sharded one draws this rank's rows alone."""
         masks, opt = self._split_phase(phase)
+        n, rows = (self.local_batch, None) if self.sharded else (self.batch_size, self.rows)
         for _ in range(self.steps_per_call if steps is None else steps):
             feats, labels, penalties = S.sample_any(
-                self.packed, self.generator, self.batch_size, self.features_length, **masks)
+                self.packed, self.generator, n, self.features_length, rows=rows, **masks)
             last = self._sub_step(feats, labels, penalties, **opt)
         return self._report(last)
 
     def step_on_batch(self, windows, valid, labels, weights, **phase) -> dict:
         """The step on a gathered batch: windows [B, L, F] int16 (uint16
         bits), valid [B, L], labels [B], penalty weights [B]; or each with a
-        leading [steps] axis, one sub-step per entry."""
+        leading [steps] axis, one sub-step per entry.  Over a mesh this rank
+        computes its rows of the global batch, SpecAugment drawn for all."""
         masks, opt = self._split_phase(phase)
         batches = [(windows, valid, labels, weights)]
         if windows.dim() == 4:
             batches = list(zip(windows, valid, labels, weights))
+        r = slice(None) if self.rows is None else self.rows
         for w, v, y, pen in batches:
-            feats = S.finish_batch(self.generator, w, v, **masks)
-            last = self._sub_step(feats, y, pen, **opt)
+            feats = S.finish_batch(self.generator, w[r], v[r], **masks, batch_size=w.shape[0],
+                                   rows=self.rows)
+            last = self._sub_step(feats, y[r], pen[r], **opt)
         return self._report(last)
 
 
@@ -221,15 +291,30 @@ def make_train_step(bundle, model, packed, batch_size: int, features_length: int
     return TrainStep(bundle, model, packed, batch_size, features_length, steps_per_call, generator)
 
 
-def make_eval_fn(bundle, eval_batch: int = 1024):
+def make_eval_fn(bundle, eval_batch: int = 1024, mesh=None):
     """Chunked eval-mode forward: (model, x [N, T, F] tensor or array) ->
-    numpy probabilities [N]."""
+    numpy probabilities [N].  Over a ``mesh`` each chunk (eval_batch rounded
+    up to a multiple of its size) is zero padded to a multiple of the size,
+    each rank runs its block of rows, and the blocks are gathered in rank
+    order: every rank returns all N."""
+    if mesh is not None:
+        eval_batch = -(-eval_batch // mesh.size) * mesh.size
+
+    def chunk_probs(model, chunk):
+        if mesh is None:
+            return bundle.forward(model, chunk).reshape(-1)
+        n = chunk.shape[0]
+        pad = -n % mesh.size
+        if pad:
+            chunk = torch.cat([chunk, chunk.new_zeros((pad,) + chunk.shape[1:])])
+        rows = mesh.rows(n + pad)
+        return mesh.gather_rows(bundle.forward(model, chunk[rows]).reshape(-1))[:n]
 
     @torch.inference_mode()
     def eval_probs(model, x) -> np.ndarray:
         device = next(model.parameters()).device
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        outs = [bundle.forward(model, x[i : i + eval_batch]).reshape(-1)
+        outs = [chunk_probs(model, x[i : i + eval_batch])
                 for i in range(0, x.shape[0], eval_batch)]
         return torch.cat(outs).cpu().numpy() if outs else np.zeros((0,), np.float32)
 
@@ -276,13 +361,37 @@ def _check_ported(config: dict, mesh) -> None:
     backend = config.get("frontend_backend", "xla")
     if backend not in FRONTEND_BACKENDS:
         raise ValueError(f"frontend_backend must be one of {FRONTEND_BACKENDS}, got {backend!r}")
-    if mesh not in (None, 1):
+    size = getattr(mesh, "size", mesh) or 1
+    if int(size) > 1 and int(config.get("pool_refresh_steps", 0) or 0) > 0:
         raise NotImplementedError(
-            f"a mesh of {mesh} devices is not ported yet: ROADMAP queue item 10, multi-GPU")
+            f"pool_refresh_steps over a mesh of {size} ranks is not ported yet: ROADMAP queue "
+            "item 13 (rank 0 builds each pool and broadcasts it at an agreed swap step)")
+
+
+def _pack(config: dict, feature_handler, dev: torch.device, mesh):
+    """The training corpus: (packed, sharded).  Over a mesh, raw audio is
+    replicated from rank 0 and spectrograms follow ``corpus_sharding``; one
+    device keeps spectrograms on it or in host RAM by ``corpus_residency``."""
+    step_ms = int(config.get("window_step_ms", 10))
+    if mesh is None:
+        if config.get("raw_audio_training"):
+            # audio pools are bounded by pack_pool_size: no corpus budget check
+            return feature_handler.pack_training_audio(dev, step_ms=step_ms), False
+        return pack_training_with_residency(feature_handler.providers, config, dev), False
+    from microwakeword_tpu_torch.parallel.corpus import broadcast_packed, pack_for_mesh
+
+    if config.get("raw_audio_training"):
+        packed = feature_handler.pack_training_audio(dev, step_ms=step_ms) if mesh.is_main else None
+        return broadcast_packed(packed, mesh), False
+    if str(config.get("corpus_residency", "auto")) == "host":
+        raise ValueError(
+            "corpus_residency: host is single-device; with a mesh the corpus is divided across "
+            "devices instead -- set corpus_sharding: shard")
+    return pack_for_mesh(feature_handler.providers, config, mesh)
 
 
 def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = False,
-          device=None, mesh: int | None = None):
+          device=None, mesh=None):
     """Trains a model on ``device`` (default the card); returns (model,
     history).
 
@@ -291,11 +400,19 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     spectrogram_length, eval_step_interval, train_dir, minimization_metric,
     maximization_metric, target_minimization, seed, steps_per_call,
     profile_dir, raw_audio_training, window_step_ms, frontend_backend,
-    pool_refresh_steps, pool_refresh_blocking.  ``mesh`` is a device count;
-    only one is ported.
+    pool_refresh_steps, pool_refresh_blocking, corpus_residency,
+    corpus_sharding.  ``mesh`` is a ``parallel.mesh.Mesh`` or a rank count
+    (None or 1: one device): the run is data parallel over its ranks, on
+    the mesh's device, and every rank returns the same model.
     """
-    dev = resolve_device(device)
+    from microwakeword_tpu_torch.parallel.mesh import resolve_mesh
+
     _check_ported(config, mesh)
+    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
+    if mesh is not None:
+        dev = mesh.device
+    main = mesh is None or mesh.is_main
     train_dir = config["train_dir"]
     os.makedirs(train_dir, exist_ok=True)
     batch_size = int(config.get("batch_size", 128))
@@ -303,45 +420,56 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     seed = int(config.get("seed", 0))
 
     model = bundle.init(torch.Generator().manual_seed(seed), device=dev)
-    with open(os.path.join(train_dir, "model_summary.txt"), "w") as f:
-        f.write(model_summary(model) + "\n")
+    if main:
+        with open(os.path.join(train_dir, "model_summary.txt"), "w") as f:
+            f.write(model_summary(model) + "\n")
 
-    if config.get("raw_audio_training"):
-        # audio pools are bounded by pack_pool_size: no corpus budget check
-        packed = feature_handler.pack_training_audio(
-            dev, step_ms=int(config.get("window_step_ms", 10)))
-    else:
-        packed = pack_training_with_residency(feature_handler.providers, config, dev)
+    packed, sharded = _pack(config, feature_handler, dev, mesh)
     spc_cfg = config.get("steps_per_call", "auto")
     # auto: one step per call on the card for now (a CUDA graph of the step
     # is queued in ROADMAP item 11)
     steps_per_call = 1 if spc_cfg in ("auto", None, "") else int(spc_cfg)
-    generator = torch.Generator(device=dev).manual_seed(seed)
     producer = None
     if isinstance(packed, HostStreamedData):
         # the host's draws come from a CPU generator seeded like the card's
         producer = HostBatchProducer(packed, batch_size, features_length, steps_per_call, dev,
                                      torch.Generator().manual_seed(seed))
         packed = None
-    train_step = make_train_step(bundle, model, packed, batch_size, features_length,
-                                 steps_per_call, generator)
-    eval_probs = make_eval_fn(bundle)
+    if mesh is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        train_step = make_train_step(bundle, model, packed, batch_size, features_length,
+                                     steps_per_call, generator)
+    else:
+        from microwakeword_tpu_torch.parallel.train_step import (
+            make_sharded_train_step,
+            shard_seed,
+        )
+
+        generator = torch.Generator(device=dev).manual_seed(
+            shard_seed(seed, mesh.rank) if sharded else seed)
+        train_step = make_sharded_train_step(bundle, model, packed, batch_size, features_length,
+                                             mesh, steps_per_call, generator, sharded)
+    eval_probs = make_eval_fn(bundle, mesh=mesh)
     refresher = None
     refresh_steps = int(config.get("pool_refresh_steps", 0) or 0)
     if refresh_steps > 0:
         refresher = PoolRefresher(feature_handler, packed, refresh_steps).start()
     try:
-        return _train_loop(config, feature_handler, restore_checkpoint, model, train_step,
-                           eval_probs, refresher, producer)
+        out = _train_loop(config, feature_handler, restore_checkpoint, model, train_step,
+                          eval_probs, refresher, producer, main)
     finally:
         if refresher is not None:
             refresher.stop()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are written before any rank reads them
+    return out
 
 
 def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
-                train_step: TrainStep, eval_probs, refresher, producer=None):
+                train_step: TrainStep, eval_probs, refresher, producer=None, main: bool = True):
     """train()'s steps, evals and checkpoints; returns (model, history).  With
-    a ``producer`` (host mode) each step's batch comes from it."""
+    a ``producer`` (host mode) each step's batch comes from it; only ``main``
+    (rank 0 of a mesh) writes files."""
     train_dir = config["train_dir"]
     phases = resolve_schedules(config)
     total_steps = sum(p["steps"] for p in phases)
@@ -388,8 +516,8 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
     maximization_metric = config.get("maximization_metric", "average_viable_recall")
     target_min = float(config.get("target_minimization", 0.9))
 
-    # optional torch.profiler capture of the hot loop once warm
-    profile_dir = config.get("profile_dir")
+    # optional torch.profiler capture of the hot loop once warm (rank 0's)
+    profile_dir = config.get("profile_dir") if main else None
     profile_after = int(config.get("profile_after", 2))
     profile_steps = int(config.get("profile_steps", 20))
     profiler = None
@@ -435,7 +563,8 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
 
         if step % eval_interval == 0 or step == total_steps:
             sm = {k: float(v) for k, v in step_metrics.items()}
-            _save(os.path.join(train_dir, "last_weights.pt"), _weights_state(model))
+            if main:
+                _save(os.path.join(train_dir, "last_weights.pt"), _weights_state(model))
 
             val_metrics = {}
             if has_val:
@@ -445,8 +574,10 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
                 current_min = float(val_metrics[minimization_metric]) if minimization_metric else 0.0
                 current_max = float(val_metrics[maximization_metric])
                 # per-eval breadcrumb (reference train.py:391-399)
-                _save(os.path.join(train_dir, "train", f"{int(best_min * 10000)}_weights_{step}.pt"),
-                      _weights_state(model))
+                if main:
+                    _save(os.path.join(train_dir, "train",
+                                       f"{int(best_min * 10000)}_weights_{step}.pt"),
+                          _weights_state(model))
                 # Once faph == 0 and average_viable_recall == 1.0, every
                 # later eval ties and selection freezes at the first such
                 # eval (reference semantics, train.py:411-442).
@@ -467,10 +598,11 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
                 if M.is_new_best(current_min, current_max, best_min, best_max, target_min):
                     best_min, best_max = current_min, current_max
                     best_no_faph_cutoff = val_metrics["cutoff_for_no_faph"]
-                    state = _weights_state(model)
-                    _save(os.path.join(train_dir, "best_weights.pt"), state)
-                    _save(ckpt_path, {"weights": state, "opt_state": _opt_state_cpu(train_step),
-                                      "step": step})
+                    if main:
+                        state = _weights_state(model)
+                        _save(os.path.join(train_dir, "best_weights.pt"), state)
+                        _save(ckpt_path, {"weights": state,
+                                          "opt_state": _opt_state_cpu(train_step), "step": step})
 
             recent = step_times[-eval_interval:]
             record = {
@@ -485,19 +617,22 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
             if refresher is not None:
                 record["pool_swaps"] = refresher.swap_count
             history.append(record)
-            with open(history_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
+            if main:
+                with open(history_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
 
     if profiler is not None and profile_dir:  # trace still open: short runs
         profiler.stop()
         os.makedirs(profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
-    state = _weights_state(model)
-    _save(ckpt_path, {"weights": state, "opt_state": _opt_state_cpu(train_step), "step": total_steps})
-    _save(os.path.join(train_dir, "last_weights.pt"), state)
-    if not os.path.exists(os.path.join(train_dir, "best_weights.pt")):
-        _save(os.path.join(train_dir, "best_weights.pt"), state)
+    if main:
+        state = _weights_state(model)
+        _save(ckpt_path, {"weights": state, "opt_state": _opt_state_cpu(train_step),
+                          "step": total_steps})
+        _save(os.path.join(train_dir, "last_weights.pt"), state)
+        if not os.path.exists(os.path.join(train_dir, "best_weights.pt")):
+            _save(os.path.join(train_dir, "best_weights.pt"), state)
     return model, history
 
 

@@ -15,7 +15,10 @@ store, against the JAX package where it has a counterpart.
 - ``--export_stablehlo`` writes ``torch_export/model.mwwt`` and
   ``--test_tflite_streaming_quantized`` the int8 ``.tflite`` and its ESPHome
   manifest;
-- what the port does not carry yet (more than one device) raises
+- ``--device cpu --mesh 2`` trains on two gloo ranks, rank 0 alone writes
+  the artifacts, and the weights equal ``--mesh off``'s; ``sweep --mesh 2``'s
+  members equal the solo sweep's;
+- what the port does not carry yet (pool refresh over a mesh) raises
   NotImplementedError naming its ROADMAP queue item.
 """
 
@@ -235,14 +238,38 @@ def test_model_accuracy_matches_jax(trained, twin, data_set, use_streaming):
             assert got[key] == pytest.approx(value, abs=1e-6), key
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--mesh", "2"], "item 10"),
-])
-def test_cli_flags_not_ported_raise(store, extra, item):
-    root, _ = store
-    with pytest.raises(NotImplementedError, match=item):
-        CLI.main(["--training_config", str(root / "training_parameters.yaml"), "--device", "cpu",
-                  "--train", "0"] + extra + MODEL_FLAGS)
+def test_cli_flags_not_ported_raise(store, tmp_path):
+    """``--device cpu --mesh 2`` (it raised before its slice): two gloo ranks
+    train the run, rank 0 alone writes the artifacts and metrics.jsonl (one
+    record per eval), the streamed ROC is the solo run's, and the final
+    parameters equal ``--mesh off``'s within 2e-5 (tests/test_parallel.py's
+    bound for the JAX package), the BatchNorm statistics (variances up to
+    about 60) within 2e-5 relative."""
+    _, config = store
+    outs = {}
+    for mesh in ("2", "off"):
+        with open(tmp_path / f"{mesh}.yaml", "w") as f:
+            yaml.safe_dump(dict(config, train_dir=str(tmp_path / mesh)), f)
+        outs[mesh] = CLI.main(["--training_config", str(tmp_path / f"{mesh}.yaml"), "--device",
+                               "cpu", "--mesh", mesh, "--export_native", "0",
+                               "--export_stablehlo", "0"] + MODEL_FLAGS)
+    run = tmp_path / "2"
+    for name in ("best_weights.pt", "last_weights.pt", "restore/ckpt.pt", "training_config.yaml",
+                 "model_summary.txt", "metrics.jsonl", "streaming/streaming_roc.txt"):
+        assert (run / name).exists(), name
+    records = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records] == [r["step"] for r in outs["off"]["history"]] == [10, 20]
+    for got, want in zip(records, outs["off"]["history"]):
+        assert got["train"]["loss"] == pytest.approx(want["train"]["loss"], rel=1e-4)
+    assert outs["2"]["streaming_roc"]["auc"] == pytest.approx(outs["off"]["streaming_roc"]["auc"],
+                                                              abs=1e-6)
+    got = torch.load(run / "last_weights.pt", weights_only=True)
+    want = torch.load(tmp_path / "off" / "last_weights.pt", weights_only=True)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        stat = key.endswith((".mean", ".var"))
+        np.testing.assert_allclose(got[key].numpy(), value.numpy(), rtol=2e-5 if stat else 0,
+                                   atol=1e-6 if stat else 2e-5, err_msg=key)
 
 
 def test_cli_exports_mwwt_tflite_and_manifest(store, trained):
@@ -291,7 +318,8 @@ def _sweep_config(root, config, name):
 def test_sweep_cli(store):
     """python -m microwakeword_tpu_torch.sweep on the CPU: a member directory
     of loadable weights each, the JAX sweep's leaderboard keys and order of
-    fields, sweep_config.yaml; --mesh 2 raises (ROADMAP queue item 10)."""
+    fields, sweep_config.yaml; with --mesh 2 two gloo ranks train two members
+    each, and the members and the leaderboard equal the solo sweep's."""
     from microwakeword_tpu import sweep as jax_sweep
     from microwakeword_tpu_torch import sweep
 
@@ -326,9 +354,23 @@ def test_sweep_cli(store):
             probs.append(bundle.forward(model, x))
     assert all(bool(torch.isfinite(p).all()) for p in probs)
     assert not torch.equal(probs[0], probs[1])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sweep.main(["--training_config", _sweep_config(root, config, "sweep_mesh"), "--device",
-                    "cpu", "--mesh", "2"] + common + MODEL_FLAGS)
+    four = ["--n_models", "4"] + common[2:]
+    for name, mesh in (("sweep_solo4", "off"), ("sweep_mesh", "2")):
+        assert sweep.main(["--training_config", _sweep_config(root, config, name), "--device",
+                           "cpu", "--mesh", mesh] + four + MODEL_FLAGS) == 0
+    with open(root / "sweep_mesh" / "leaderboard.json") as f:
+        got = json.load(f)
+    with open(root / "sweep_solo4" / "leaderboard.json") as f:
+        want = json.load(f)
+    assert [row["member"] for row in got] == [row["member"] for row in want]
+    for a, b in zip(got, want):
+        assert a["best_step"] == b["best_step"]
+        assert a["maximization"] == pytest.approx(b["maximization"], abs=1e-6)
+    for i in range(4):
+        a, b = (torch.load(root / name / f"member_{i:02d}" / "best_weights.pt", weights_only=True)
+                for name in ("sweep_mesh", "sweep_solo4"))
+        for key in b:
+            np.testing.assert_allclose(a[key].numpy(), b[key].numpy(), atol=2e-5, err_msg=key)
 
 
 INCEPTION_FLAGS = ["inception", "--cnn1_filters", "8", "--cnn1_kernel_sizes", "3",
@@ -374,11 +416,13 @@ def test_inception_raises(store, tmp_path):
 
 
 def test_train_options_not_ported_raise(trained, tmp_path):
-    """A mesh of more than one device is not ported (host streaming, which
-    raised here before, trains: tests/test_torch_host_stream.py)."""
+    """Pool refresh over a mesh of more than one rank is not ported (ROADMAP
+    queue item 13); it raises before any rank is needed.  (A mesh trains:
+    tests/test_torch_parallel.py; host streaming, which raised here before,
+    trains: tests/test_torch_host_stream.py.)"""
     _, config, _ = trained
-    config = dict(config, train_dir=str(tmp_path / "run"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    config = dict(config, train_dir=str(tmp_path / "run"), pool_refresh_steps=10)
+    with pytest.raises(NotImplementedError, match="item 13"):
         T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
                 device="cpu", mesh=2)
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the data-parallel step around the frontend kernel in a NCCL group of one.
 
 These tests need an NVIDIA GPU and skip without one; the kernels have no CPU
 mode.  The file imports only the port, so it also runs where JAX is absent:
@@ -100,3 +101,52 @@ def test_frontend_kernel_rejects_what_it_does_not_take(cuda):
         kernel.frontend_batch(x[:, ::2])  # not contiguous
     with pytest.raises(ValueError):
         kernel.frontend_batch(x[0])  # not [B, N]
+
+
+@pytest.mark.cuda
+def test_nccl_world1_raw_audio_step_equals_solo(cuda):
+    """The data-parallel step in a NCCL group of one rank, on raw audio
+    through the frontend kernel (3 launches a step), equals the solo step
+    from the same seed and weights: every share is 1.0 and every collective
+    returns its input (deterministic cuDNN, so both runs take one algorithm)."""
+    from microwakeword_tpu_torch.models import build_model, presets
+    from microwakeword_tpu_torch.parallel import mesh as M
+    from microwakeword_tpu_torch.parallel.train_step import make_sharded_train_step
+    from microwakeword_tpu_torch.train import loop as training
+
+    rng = np.random.default_rng(8)
+    providers = [types.SimpleNamespace(
+        generate_audio_pool=lambda shard_index, shard_count, c=clips: c, sampling_weight=w,
+        penalty_weight=1.0, label=label, truncation_strategy=strategy)
+        for clips, w, label, strategy in (
+            ([rng.integers(-20000, 20000, int(n)).astype(np.int16)
+              for n in rng.integers(16000, 48000, 30)], 2.0, 1.0, "truncate_start"),
+            ([rng.integers(-3000, 3000, int(n)).astype(np.int16)
+              for n in rng.integers(16000, 48000, 30)], 10.0, 0.0, "random"))]
+    data = sampler.pack_audio_data(providers, cuda)
+    bundle = build_model("mixednet", presets.flagship_config())
+    phase = dict(learning_rate=1e-3, time_mask_max_size=5, time_mask_count=2,
+                 freq_mask_max_size=5, freq_mask_count=2, positive_class_weight=1.0,
+                 negative_class_weight=20.0)
+    steps, runs = 5, []
+    torch.backends.cudnn.deterministic = True
+    mesh = M.init_mesh(1, 0, cuda, init_method=f"tcp://localhost:{M.free_port()}")
+    try:
+        assert mesh.backend == "nccl"
+        for m in (None, mesh):
+            model = bundle.init(torch.Generator().manual_seed(0), device=cuda)
+            gen = torch.Generator(device=cuda).manual_seed(1)
+            step = (training.make_train_step(bundle, model, data, 32, bundle.spectrogram_length,
+                                             generator=gen) if m is None else
+                    make_sharded_train_step(bundle, model, data, 32, bundle.spectrogram_length, m,
+                                            generator=gen))
+            before = kernel.frontend_batch.launches
+            losses = [float(step.step(**phase)["loss"]) for _ in range(steps)]
+            assert kernel.frontend_batch.launches - before == steps * kernel.LAUNCHES_PER_CALL
+            runs.append((losses, {k: v.detach().clone() for k, v in model.state_dict().items()}))
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic = False
+    (solo_losses, solo), (dp_losses, dp) = runs
+    np.testing.assert_allclose(dp_losses, solo_losses, rtol=0, atol=1e-6)
+    assert max(float((dp[k] - solo[k]).abs().max()) for k in solo) <= 1e-6

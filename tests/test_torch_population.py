@@ -8,6 +8,7 @@ of tests/test_population.py, and against the JAX package's population step.
   stay equal;
 - chained sub-steps equal the unchained loop;
 - selection and the leaderboard order;
+- split over two gloo ranks, a population equals the solo one;
 - against JAX: the same stacked weights (moved by ``models/convert.py``'s
   population converters) and the same fixed batch (JAX's ``sample_batch``
   patched as ``microwakeword_tpu/parallel/population.py`` sees it, inside the
@@ -283,6 +284,56 @@ def test_population_converters_round_trip():
         assert set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in b)
 
 
+# (bundle, share_batch) of the two-rank populations: private batches, and
+# member 0's shared batches with Inception's per-member dropout masks
+MESH_RUNS = (("mixednet", False), ("inception", True))
+
+
+def _mesh_population(family, share_batch, mesh=None):
+    """4 members, 6 steps with selection every 3, on one device or split
+    over ``mesh`` ranks."""
+    bundle = _bundle() if family == "mixednet" else _inception()
+    rng = np.random.default_rng(3)
+    val_x = rng.uniform(0, 30, (12, L, 40)).astype(np.float32)
+    val_x[:6, :, 20:] += 20
+    val_y = (np.arange(12) < 6).astype(np.float32)
+    return P.train_population(
+        bundle, _packed(), 4, 6, 8, L, seeds=[3, 4, 5, 6], learning_rates=[0.01, 0.005] * 2,
+        spec_augment=SA, eval_interval=3, validation=(val_x, val_y), share_batch=share_batch,
+        mesh=mesh, device="cpu")
+
+
+def _mesh_populations():
+    return [_mesh_population(family, share, mesh=2) for family, share in MESH_RUNS]
+
+
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.train_population(_bundle(), _packed(), 2, 1, 8, L, mesh=2, device="cpu")
+    """A population split over two gloo ranks (it raised before its slice),
+    two members each, equals the solo population member for member: the
+    final and best states, the history and the leaderboard, also with a
+    shared batch drawn from member 0's generator on the rank without it."""
+    from microwakeword_tpu_torch.parallel import mesh as MESH
+
+    ranks = MESH.launch(_mesh_populations, 2, "cpu")
+    for (family, share), *runs in zip(MESH_RUNS, *ranks):
+        want_state, want_history, want_sel = _mesh_population(family, share)
+        for got_state, got_history, got_sel in runs:
+            for got, want in ((got_state, want_state),
+                              (got_sel["best_variables"], want_sel["best_variables"])):
+                assert set(got) == set(want)
+                for k in want:
+                    # parameters to ATOL; the statistics (variances near 20)
+                    # to 1e-5 relative: vmap over 2 members sums in another order
+                    stat = k.endswith((".mean", ".var"))
+                    np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                               rtol=1e-5 if stat else 0,
+                                               atol=1e-6 if stat else ATOL,
+                                               err_msg=f"{family} {k}")
+            assert [r["step"] for r in got_history] == [r["step"] for r in want_history]
+            for g, w in zip(got_history, want_history):
+                np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5)
+                assert [v["accuracy"] for v in g["validation"]] == pytest.approx(
+                    [v["accuracy"] for v in w["validation"]], abs=1e-6)
+            np.testing.assert_array_equal(got_sel["best_step"], want_sel["best_step"])
+            assert [r["member"] for r in got_sel["leaderboard"]] == [
+                r["member"] for r in want_sel["leaderboard"]]
