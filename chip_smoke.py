@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's serving, training, export, sweep and host I/O paths on one CUDA card.
+"""Drives the port's serving, training, export, sweep, host I/O and host frontend paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -39,7 +39,9 @@ printing its own lines; any failure exits non-zero:
    accuracy and the last eval's validation accuracy exceed 0.9, the
    artifacts exist and the streamed AUC is finite, and that checkpoint
    selection ranked the evals and run() scored the selected weights
-   (check_selection); then, for the trained model, ms per step by CUDA
+   (check_selection), and what run() wrote under logs/ (TensorBoard
+   scalars where tensorboardX imports; nothing, and a line saying so,
+   where it does not); then, for the trained model, ms per step by CUDA
    events over 50 steps, a torch.profiler window of 20 steps (busy share, kernels per
    step, the five largest kernels), each layer of the step alone under the
    profiler (sampler, forward, backward, Adam, step metrics: kernels and
@@ -79,8 +81,9 @@ printing its own lines; any failure exits non-zero:
    moving average -> cooldown accept counts; streamed probabilities held
    against the non-streaming forward; the path timed with CUDA events and
    the scan's first SERVING_PROFILED_STEPS steps profiled;
-12. Inception training at full width through ``run()`` on phase 6's store
-   and recipe (dropout 0.2, 20 ms hops: 102 input frames), with test splits
+12. Inception training at full width through ``run()`` under deterministic
+   cuDNN on phase 6's store and recipe (dropout 0.2, 20 ms hops: 102 input
+   frames), with test splits
    cut to INCEPTION_TEST (streamed evaluation runs one step per frame);
    checks as phase 6 (the loss falls, accuracies, artifacts, selection), then
    the step's ms by CUDA events, kernels per step under the profiler and 10
@@ -146,8 +149,21 @@ printing its own lines; any failure exits non-zero:
     rtol 2e-3 and parameters 1e-3, which a control run with BatchNorm
     statistics per rank must exceed; the two-rank step timed; then a sharded
     corpus, whose two ranks' clips are disjoint and together the whole
-    corpus;
-19. a JSON line of the kernels, then the last line
+    corpus; (c) pool refresh over a NCCL group of one rank on phase 9's full
+    pools, a blocking refresh every 10 of 30 steps: 3 swaps, 3 frontend
+    launches per step (the count set to 0 before the run and read after),
+    the pool tensor changed in place at its shape, the swaps' broadcast ms;
+    (d) pool refresh over two gloo ranks sharing the card, pools of 200
+    clips per provider, a blocking refresh every 5 of 20 steps: rank 0
+    alone builds, the ranks swap at the same steps to pools with equal
+    digests, and end with equal parameters;
+19. the host frontends (frontend/fixedpoint.py and reference.py) on the
+    card against the same functions on the CPU, on the golden clips of
+    tests/golden/frontend.npz at 10 and 20 ms: the integer-exact frontend
+    bit for bit, the float one under the Q6 gate, with the share of exact
+    cells; chunked calls on the card equal the whole clip; ms per
+    audio-second on the card and on the CPU;
+20. a JSON line of the kernels, then the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -158,6 +174,7 @@ import contextlib
 import dataclasses
 import glob
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -188,7 +205,7 @@ from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.evaluate import roc, streaming_eval
 from microwakeword_tpu_torch.export.torch_export import ExportedModel
 from microwakeword_tpu_torch.frontend import constants as FC
-from microwakeword_tpu_torch.frontend import gate, kernel, plain
+from microwakeword_tpu_torch.frontend import fixedpoint, gate, kernel, plain, reference
 from microwakeword_tpu_torch.frontend.ab import cuda_ms, queued_ms
 from microwakeword_tpu_torch.inference import Model
 from microwakeword_tpu_torch.models import build_model, convert, presets
@@ -306,6 +323,10 @@ DP_F32_LOSS_RTOL, DP_F32_PARAM_ATOL = 2e-3, 1e-3
 RESAMPLE_ATOL = 2e-4  # native vs scipy resampling (tests/test_native.py)
 VAD_ATOL = 1e-6  # native (float32) vs NumPy (float64) VAD (tests/test_native.py)
 RESAMPLE_S, RESAMPLE_RATE = 60, 44100  # seconds of 44.1 kHz audio resampled to 16 kHz
+REFRESH_DP = (10, 30)  # phase 18(c): a blocking refresh every 10 of 30 steps, phase 9's pools
+REFRESH_GLOO = (200, 5, 20)  # phase 18(d): clips per provider, refresh every 5 of 20 steps
+HOST_FRONTEND_STEPS = (10, 20)  # phase 19: the hops of the golden features
+HOST_FRONTEND_WINDOWS = 40  # phase 19: frames fed one window at a time
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -447,6 +468,7 @@ def phase_training(dev: torch.device, smi: str, seed: int, root: str):
     check(val_acc > 0.9, f"validation accuracy {val_acc} at the last eval")
     check(math.isfinite(auc), f"streamed AUC {auc}")
     check_selection(bundle, config, handler, out, dev, "phase 6")
+    print_summaries("phase 6", run_dir)
     state = {k: v.cpu() for k, v in training.load_weights(
         bundle, os.path.join(run_dir, "best_weights.pt"), dev).state_dict().items()}
 
@@ -466,6 +488,21 @@ def phase_training(dev: torch.device, smi: str, seed: int, root: str):
     print(f"phase 6 sync check: {SYNC_CHECKED_STEPS} steps under set_sync_debug_mode('error') "
           f"raised nothing", flush=True)
     return bundle, packed, phase, config, out
+
+
+def print_summaries(label: str, run_dir: str) -> None:
+    """What run() wrote under logs/: the TensorBoard scalars where
+    tensorboardX imports (an optional logger), nothing where it does not."""
+    logs = os.path.join(run_dir, "logs")
+    if importlib.util.find_spec("tensorboardX") is None:
+        check(not os.path.exists(logs), f"{logs} exists without tensorboardX")
+        print(f"{label} TensorBoard: tensorboardX does not import on this machine, so run() wrote "
+              "no summaries (metrics.jsonl holds every eval's record)", flush=True)
+        return
+    events = {split: glob.glob(os.path.join(logs, split, "events.*")) for split in
+              ("train", "validation")}
+    check(all(events.values()), f"event files under {logs}: {events}")
+    print(f"{label} TensorBoard: event files under logs/train and logs/validation", flush=True)
 
 
 def measure_step(train_step, phase: dict) -> dict:
@@ -1150,10 +1187,16 @@ def phase_inception_training(dev: torch.device, smi: str, seed: int, root: str,
     phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
 
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = CLI.run(flags, config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # deterministic cuDNN: one tree reads one last-batch accuracy (cuDNN's
+    # run-to-run order moved it across the 0.9 check on unchanged code)
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        out = CLI.run(flags, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
     peak = torch.cuda.max_memory_allocated()
     history, run_dir = out["history"], config["train_dir"]
     handler = FeatureHandler(config)
@@ -1168,8 +1211,9 @@ def phase_inception_training(dev: torch.device, smi: str, seed: int, root: str,
                  os.path.join("native", "quantized_streaming_roc.txt")):
         check(os.path.exists(os.path.join(run_dir, name)), f"{name} was not written")
     print(f"phase 12 run(): Inception, {sum(p['steps'] for p in training.resolve_schedules(config))} "
-          f"steps of batch {batch} x {length} frames, wall {wall:.2f} s with evals, the streamed "
-          f"ROC, the export and the int8 file's ROC; peak memory {peak / 2**20:.1f} MiB ({smi})")
+          f"steps of batch {batch} x {length} frames under deterministic cuDNN, wall {wall:.2f} s "
+          f"with evals, the streamed ROC, the export and the int8 file's ROC; peak memory "
+          f"{peak / 2**20:.1f} MiB ({smi})")
     print_history("phase 12", history)
     last, auc = history[-1]["train"], out["streaming_roc"]["auc"]
     val_acc = history[-1]["validation"]["accuracy"]
@@ -1825,7 +1869,7 @@ def dp_gaps(ranks: list, solo: dict, key) -> tuple[float, float, float]:
 
 
 def phase_dp_world1(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
-    """Phase 18(a) and its times in (c): NCCL world 1 on phase 9's raw-audio
+    """Phase 18(a) and its times: NCCL world 1 on phase 9's raw-audio
     pools, which wait in host memory between the phases."""
     config = raw["config"]
     bundle = build_model("mixednet", config["model_config"])
@@ -1865,7 +1909,7 @@ def phase_dp_world1(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
         torch.backends.cudnn.deterministic = False
         torch.distributed.destroy_process_group()
     raw_solo_ms, world1_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
-    print(f"phase 18(c) NCCL world-1 raw-audio step {world1_ms:.4f} ms against the solo step "
+    print(f"phase 18(a) time: NCCL world-1 raw-audio step {world1_ms:.4f} ms against the solo step "
           f"{raw_solo_ms:.4f} ms by CUDA events over {DP_TIMED_STEPS} steps, in turns "
           f"({', '.join(f'{t:.4f}' for t in times)}; phase 9's solo step "
           f"{raw['step_ms']:.4f} ms); kernels per step {kernels['world 1']:.1f} (solo "
@@ -1876,8 +1920,8 @@ def phase_dp_world1(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
 
 
 def phase_dp_gloo(dev: torch.device, smi: str, seed: int, spectrograms: str) -> dict:
-    """Phase 18(b) and its time in (c): two gloo ranks on this card on phase
-    6's store, against the solo step in this process."""
+    """Phase 18(b) and its time: two gloo ranks on this card on phase 6's
+    store, against the solo step in this process."""
     t0 = time.perf_counter()
     card = str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)  # both ranks on it
     ranks = dp_mesh.launch(dp_gloo_rank, 2, card, spectrograms, seed, card, backend="gloo")
@@ -1931,7 +1975,7 @@ def phase_dp_gloo(dev: torch.device, smi: str, seed: int, spectrograms: str) -> 
     print(f"phase 18(b) sharded corpus: {len(shards[0]):,} and {len(shards[1]):,} clips on the "
           f"two ranks, disjoint, together the corpus's {len(full):,}", flush=True)
     gloo_ms = ranks[0]["step_ms"]
-    print(f"phase 18(c) two gloo ranks on one card (a one-card stand-in, not a multi-GPU "
+    print(f"phase 18(b) time: two gloo ranks on one card (a one-card stand-in, not a multi-GPU "
           f"figure): {gloo_ms:.4f} ms per step by CUDA events on rank 0 over {DP_TIMED_STEPS} "
           f"steps (host clock {ranks[0]['host_ms']:.4f} ms), {ranks[0]['collectives_per_step']:.1f} "
           f"collectives per step, against the solo spectrogram step {spec_solo_ms:.4f} ms; phase "
@@ -1947,6 +1991,212 @@ def phase_data_parallel(dev: torch.device, smi: str, seed: int, raw: dict,
     raw-audio pools; (b) two gloo ranks on this card on phase 6's store."""
     return dict(phase_dp_world1(dev, smi, seed, raw),
                 **phase_dp_gloo(dev, smi, seed, spectrograms))
+
+
+def time_broadcasts(mesh) -> list:
+    """From here on, (bytes, ms) of each of ``mesh``'s broadcasts: the card
+    is synchronised before and after each, so the host clock spans it."""
+    calls, inner = [], mesh.broadcast
+
+    def timed(x, src=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(x, src)
+        torch.cuda.synchronize()
+        calls.append((x.numel() * x.element_size(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    mesh.broadcast = timed
+    return calls
+
+
+def refreshing_run(bundle, packed, handler, phase: dict, dev, seed: int, mesh, every: int,
+                   steps: int) -> dict:
+    """``steps`` data-parallel steps (batch 128) from the seed's weights with
+    a blocking pool refresh every ``every`` steps over ``mesh``, as train()
+    runs them: rank 0 builds, every rank swaps.  Returns the swap steps with
+    a sha1 of the pool after each, the losses, the state, the broadcasts'
+    (bytes, ms) and the refresher."""
+    model = bundle.init(torch.Generator().manual_seed(seed), device=dev)
+    step = make_sharded_train_step(bundle, model, packed, 128, bundle.spectrogram_length, mesh,
+                                   generator=torch.Generator(device=dev).manual_seed(seed))
+    broadcasts = time_broadcasts(mesh)
+    refresher = PoolRefresher(handler, packed, every, mesh=mesh).start()
+    swaps, losses = [], []
+    try:
+        for i in range(1, steps + 1):
+            losses.append(float(step.step(**phase)["loss"]))
+            if refresher.maybe_swap(packed, i, block=True):
+                swaps.append((i, hashlib.sha1(packed.chunks.cpu().numpy().tobytes()).hexdigest()))
+    finally:
+        refresher.stop()
+    state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    return dict(swaps=swaps, losses=losses, state=state, broadcasts=broadcasts,
+                refresher=refresher, builds=refresher.builds)
+
+
+def phase_refresh_world1(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
+    """Phase 18(c): pool refresh over a NCCL group of one rank on phase 9's
+    full pools, REFRESH_DP: 3 swaps, 3 frontend launches per step, the pool
+    tensor changed in place at its shape; the swaps' broadcast ms."""
+    every, steps = REFRESH_DP
+    config = raw["config"]
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    packed = packed_to(raw["packed"], dev)
+    before, ptr = packed.chunks.clone(), packed.chunks.data_ptr()
+    handler = FeatureHandler(config, dev)
+    mesh = dp_mesh.init_mesh(1, 0, dev, init_method=f"tcp://localhost:{dp_mesh.free_port()}")
+    try:
+        check(mesh.backend == "nccl", f"world-1 backend {mesh.backend}")
+        kernel.frontend_batch.launches = 0
+        t0 = time.perf_counter()
+        run = refreshing_run(bundle, packed, handler, phase, dev, seed, mesh, every, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel.frontend_batch.launches
+        collectives = mesh.collectives
+    finally:
+        torch.distributed.destroy_process_group()
+    pool_bytes = before.numel() * before.element_size()
+    chunk_ms = [ms for nbytes, ms in run["broadcasts"] if nbytes == pool_bytes]
+    flag_ms = [ms for nbytes, ms in run["broadcasts"] if nbytes == 1]
+    check([i for i, _ in run["swaps"]] == list(range(every, steps + 1, every))
+          and run["refresher"].swap_count == steps // every, f"swaps {run['swaps']}")
+    check(launches == kernel.LAUNCHES_PER_CALL * steps,
+          f"the refreshing world-1 run launched the frontend kernel {launches} times in {steps} steps")
+    check(packed.chunks.data_ptr() == ptr and packed.chunks.shape == before.shape,
+          "the swap moved or reshaped the pool tensor")
+    changed = float((packed.chunks != before).float().mean())
+    check(changed > 0.5, f"the swaps changed {changed:.4f} of the pool's samples")
+    check(len(chunk_ms) == len(flag_ms) == steps // every and all(map(math.isfinite, run["losses"])),
+          f"broadcasts {run['broadcasts'][:8]}, losses {run['losses'][-3:]}")
+    print(f"phase 18(c) pool refresh over a NCCL group of one rank: phase 9's pools "
+          f"({tuple(before.shape)} int16, {pool_bytes / 1e6:.1f} MB), a blocking refresh every "
+          f"{every} of {steps} steps, flagship batch 128: swaps at steps "
+          f"{[i for i, _ in run['swaps']]}; frontend launches {launches} "
+          f"({launches / steps:.1f} per step); {collectives} collectives in all, "
+          f"{len(run['broadcasts'])} of them the swaps' (a flag and the chunks at each); pool "
+          f"tensor kept in place, {changed:.4f} of its samples changed; loss "
+          f"{run['losses'][-1]:.5f}; wall "
+          f"{wall:.1f} s (rank 0 builds {steps // every} pools of {POOL_SIZE} x 2 clips on the "
+          f"host)", flush=True)
+    print(f"phase 18(c) swap broadcasts (host clock, card synchronised around each): chunks "
+          f"{', '.join(f'{ms:.4f}' for ms in chunk_ms)} ms, flag "
+          f"{', '.join(f'{ms:.4f}' for ms in flag_ms)} ms ({smi})", flush=True)
+    return dict(launches=launches, steps=steps, chunk_ms=chunk_ms, flag_ms=flag_ms, wall=wall)
+
+
+def refresh_gloo_rank(config: dict, seed: int, device: str) -> dict:
+    """Phase 18(d) on one of two ranks sharing the card ``device`` over gloo:
+    rank 0 packs the pools of REFRESH_GLOO and broadcasts them, as train()
+    does, then the refreshing run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _, every, steps = REFRESH_GLOO
+    mesh = dp_mesh.create_mesh(2, device)
+    bundle = build_model("mixednet", config["model_config"])
+    phase = {k: v for k, v in training.resolve_schedules(config)[0].items() if k != "steps"}
+    handler = FeatureHandler(config, mesh.device)
+    packed = handler.pack_training_audio(mesh.device, step_ms=10) if mesh.is_main else None
+    packed = dp_corpus.broadcast_packed(packed, mesh)
+    run = refreshing_run(bundle, packed, handler, phase, mesh.device, seed, mesh, every, steps)
+    pool_bytes = packed.chunks.numel() * packed.chunks.element_size()
+    return dict(rank=mesh.rank, backend=mesh.backend, swaps=run["swaps"], state=run["state"],
+                builds=run["builds"], thread=run["refresher"]._thread.ident is not None,
+                chunk_ms=[ms for n, ms in run["broadcasts"] if n == pool_bytes],
+                flag_ms=[ms for n, ms in run["broadcasts"] if n == 1], pool_bytes=pool_bytes)
+
+
+def phase_refresh_gloo(dev: torch.device, smi: str, seed: int, raw: dict) -> dict:
+    """Phase 18(d): pool refresh over two gloo ranks sharing this card,
+    phase 9's providers with pools of REFRESH_GLOO's clips: equal pools on
+    both ranks after every swap, equal swap steps, rank 0 alone building,
+    equal parameters at the end."""
+    clips, every, steps = REFRESH_GLOO
+    config = dict(raw["config"], features=[dict(f, pack_pool_size=clips)
+                                            for f in raw["config"]["features"]
+                                            if f.get("type") == "clips"])
+    t0 = time.perf_counter()
+    card = str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)  # both ranks on it
+    ranks = dp_mesh.launch(refresh_gloo_rank, 2, card, config, seed, card, backend="gloo")
+    wall = time.perf_counter() - t0
+    a, b = ranks
+    check(a["backend"] == b["backend"] == "gloo", "gloo ranks")
+    check(a["builds"] and a["thread"] and not b["builds"] and not b["thread"],
+          "rank 0 alone builds the pools")
+    want = list(range(every, steps + 1, every))
+    check([i for i, _ in a["swaps"]] == [i for i, _ in b["swaps"]] == want,
+          f"swap steps {a['swaps']} and {b['swaps']}")
+    check(a["swaps"] == b["swaps"], "the two ranks' pools differ after a swap")
+    check(len({d for _, d in a["swaps"]}) == len(want), "a swap left the pool as it was")
+    check(all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"]),
+          "the two ranks' parameters differ at the end")
+    print(f"phase 18(d) pool refresh over two gloo ranks on one card: pools of {clips} clips x 2 "
+          f"providers ({a['pool_bytes'] / 1e6:.1f} MB), a blocking refresh every {every} of {steps} "
+          f"steps: swaps at steps {want} on both ranks, the chunks' sha1 equal on both after "
+          f"each swap ({', '.join(d[:10] for _, d in a['swaps'])}), rank 0 alone built, "
+          f"parameters equal at the end; phase wall {wall:.1f} s with the ranks' start", flush=True)
+    print(f"phase 18(d) swap broadcasts over gloo on rank 0 (host clock, card synchronised "
+          f"around each): chunks {', '.join(f'{ms:.4f}' for ms in a['chunk_ms'])} ms, flag "
+          f"{', '.join(f'{ms:.4f}' for ms in a['flag_ms'])} ms ({smi})", flush=True)
+    return dict(chunk_ms=a["chunk_ms"], flag_ms=a["flag_ms"], wall=wall)
+
+
+def phase_host_frontends(dev: torch.device, smi: str) -> dict:
+    """Phase 19: the host frontends (frontend/fixedpoint.py, reference.py) on
+    the card against the same functions on the CPU, on the golden clips of
+    tests/golden/frontend.npz at 10 and 20 ms: the integer-exact frontend bit
+    for bit, the float one under the Q6 gate (the share of exact cells
+    printed); chunked calls on the card equal the whole clip; ms per
+    audio-second on the card and on the CPU (host clock, synchronised)."""
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                                  "frontend.npz"))
+    clips = [golden[k] for k in sorted(golden.files) if k.startswith("audio_")]
+    audio_s = sum(len(c) for c in clips) / FC.SAMPLE_RATE
+    exact, worst = {}, 1.0
+    for step_ms in HOST_FRONTEND_STEPS:
+        for name, module in (("fixedpoint", fixedpoint), ("reference", reference)):
+            cells = same = 0
+            for clip in clips:
+                got = module.generate_features_for_clip(clip, step_ms, device=dev).cpu().numpy()
+                want = module.generate_features_for_clip(clip, step_ms, device="cpu").numpy()
+                if module is fixedpoint:
+                    check(np.array_equal(got, want), f"fixedpoint on the card at {step_ms} ms")
+                res = gate.assert_q6_gate(got, want)
+                cells, same = cells + res.cells, same + res.exact
+            exact[(name, step_ms)] = same / cells
+            worst = min(worst, same / cells)
+        audio = golden["audio_modulated"]
+        frames = FC.num_frames(len(audio), FC.hop_samples(step_ms))
+        hop = FC.hop_samples(step_ms)
+        for cls in (reference.MicroFrontend, fixedpoint.MicroFrontendInt):
+            whole = cls(step_ms, device=dev).process_clip(audio)
+            fe = cls(step_ms, device=dev)
+            windows = torch.stack([fe.process_window(audio[t * hop : t * hop + FC.WINDOW_SAMPLES])
+                                   for t in range(HOST_FRONTEND_WINDOWS)])
+            rest = fe.process_clip(audio[HOST_FRONTEND_WINDOWS * hop :])
+            check(torch.equal(torch.cat([windows, rest]), whole) and len(whole) == frames,
+                  f"chunked {cls.__name__} on the card at {step_ms} ms")
+    ms = {}
+    for name, module in (("fixedpoint", fixedpoint), ("reference", reference)):
+        for where in (dev, torch.device("cpu")):
+            module.generate_features_for_clip(clips[0], 10, device=where)  # tables, warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for clip in clips:
+                module.generate_features_for_clip(clip, 10, device=where)
+            torch.cuda.synchronize()
+            ms[(name, where.type)] = (time.perf_counter() - t0) * 1e3 / audio_s
+    print(f"phase 19 host frontends on the card against the CPU, {len(clips)} golden clips at "
+          f"{' and '.join(map(str, HOST_FRONTEND_STEPS))} ms: fixedpoint bit-equal; exact share "
+          + ", ".join(f"{n} {s} ms {v:.6f}" for (n, s), v in exact.items())
+          + f"; the float path under the Q6 gate; chunked MicroFrontend and MicroFrontendInt "
+          f"({HOST_FRONTEND_WINDOWS} windows, then the rest) equal the whole clip", flush=True)
+    print("phase 19 host frontends, ms per audio-second at 10 ms (host clock, synchronised): "
+          + ", ".join(f"{n} {w} {v:.4f}" for (n, w), v in ms.items()) + f" ({smi})", flush=True)
+    return dict(exact=exact, ms_per_audio_s=ms, worst_exact=worst)
 
 
 def synthetic_pcm(rng: np.random.Generator, streams: int, samples: int) -> np.ndarray:
@@ -2260,12 +2510,22 @@ def main() -> int:
              INCEPTION_STEP_MS)], pcm_np)
         mark(17)
         host_io = phase_native_io(smi, native_build, built["wav_root"], args.seed)
-        # 18. data-parallel training: NCCL world 1, two gloo ranks on this card
+        # 18. data-parallel training: NCCL world 1, two gloo ranks on this
+        # card; pool refresh over both
         mark(18)
         parallel = phase_data_parallel(dev, smi, args.seed, raw, spectrograms)
+        t0 = time.perf_counter()
+        refresh1 = phase_refresh_world1(dev, smi, args.seed, raw)
+        t1 = time.perf_counter()
+        refresh2 = phase_refresh_gloo(dev, smi, args.seed, raw)
+        print(f"chip_smoke: phase 18(c) took {t1 - t0:.1f} s, 18(d) "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
         del raw["packed"]
+        # 19. the host frontends on the card
+        mark(19)
+        host_frontends = phase_host_frontends(dev, smi)
 
-    # 19. the kernels line, then the last line
+    # 20. the kernels line, then the last line
     kernels = [dict(
         name="frontend", route="cuda", source="microwakeword_tpu_torch/csrc/frontend.cu",
         replaces="microwakeword_tpu/frontend/pallas.py:76", launches=launches,
@@ -2300,6 +2560,12 @@ def main() -> int:
         dp_collectives_per_step=parallel["collectives"],
         dp_world1_kernels_per_step=parallel["kernels"],
         gloo_two_ranks_one_card_step_ms=parallel["gloo_ms"],
+        launches_refresh_world1_run=refresh1["launches"],
+        launches_per_refresh_world1_step=refresh1["launches"] / refresh1["steps"],
+        refresh_chunk_broadcast_ms={"nccl_world1": refresh1["chunk_ms"],
+                                    "gloo_two_ranks": refresh2["chunk_ms"]},
+        host_frontend_ms_per_audio_s={f"{n} {w}": v for (n, w), v in
+                                      host_frontends["ms_per_audio_s"].items()},
     )]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

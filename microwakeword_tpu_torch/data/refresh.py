@@ -14,6 +14,14 @@ provider tables stay, and each regenerated clip is written into its old slot,
 end-aligned (wake words sit at clip ends; leading zeros read as silence) and
 front-truncated if the new augmentation ran longer.  With the usual fixed
 ``augmentation_duration_s`` every clip fits its slot exactly.
+
+Over a data-parallel mesh (``parallel/mesh.py``) the pools are replicated and
+must stay equal on every rank, but augmentation draws fresh entropy, so a
+refresher on each rank would build another pool.  Rank 0 alone runs the
+thread and builds the whole pool; every rank reaches the same due steps (the
+step counter is shared), and at each one rank 0 broadcasts its decision, a
+one-element flag, then, if it swaps, the new chunks into every rank's tensor
+in place.  No collective runs between due steps.
 """
 
 from __future__ import annotations
@@ -40,10 +48,11 @@ def _audio_part(packed):
 class PoolRefresher:
     """Regenerates the clips-type audio pools of ``packed`` (PackedAudioData,
     or the audio half of PackedMixedData; spectrograms on disk need no
-    refresh) on a host thread."""
+    refresh) on a host thread; over a ``mesh``, on rank 0's thread alone
+    (module docstring)."""
 
     def __init__(self, feature_handler, packed, interval_steps: int, shard_index: int = 0,
-                 shard_count: int = 1):
+                 shard_count: int = 1, mesh=None):
         audio = _audio_part(packed)
         if audio is None:
             raise ValueError("pool_refresh_steps requires raw-audio training "
@@ -61,6 +70,8 @@ class PoolRefresher:
         self.provider_clip_count = audio.provider_clip_count.cpu().numpy()
         self._last_swap_step = 0
         self.swap_count = 0
+        self.mesh = mesh
+        self.builds = mesh is None or mesh.is_main  # the other ranks receive rank 0's pools
         # a dead worker is reported once, so training does not go on on the
         # stale pool without a word
         self.failure: str | None = None
@@ -70,13 +81,14 @@ class PoolRefresher:
         self._thread = threading.Thread(target=self._worker, daemon=True)
 
     def start(self) -> "PoolRefresher":
-        self._thread.start()
+        if self.builds:
+            self._thread.start()
         return self
 
     def stop(self) -> None:
         """Stops the worker and waits for it.  A build in progress runs to
-        its end (at most one pool's augmentation), so that no thread goes on
-        augmenting, and reading clip files, after training."""
+        the end of its provider's pool, so that no thread goes on augmenting,
+        and reading clip files, after training."""
         self._stop.set()
         try:  # unblock a worker waiting on the full queue
             self._queue.get_nowait()
@@ -85,11 +97,14 @@ class PoolRefresher:
         if self._thread.is_alive():
             self._thread.join()
 
-    def _build_chunks(self) -> np.ndarray:
-        """One regenerated pool in the original slot layout, a new array."""
+    def _build_chunks(self) -> np.ndarray | None:
+        """One regenerated pool in the original slot layout, a new array;
+        None when stopped between two providers."""
         hop = self.hop_samples
         chunks = np.zeros(self.chunk_shape, np.int16)
         for pi, p in enumerate(self.providers):
+            if self._stop.is_set():
+                return None
             clips = p.generate_audio_pool(self.shard_index, self.shard_count)
             start = int(self.provider_clip_start[pi])
             count = int(self.provider_clip_count[pi])
@@ -120,12 +135,30 @@ class PoolRefresher:
                 traceback.print_exc()
                 self.failure = f"{type(e).__name__}: {e}"
                 return
+            if chunks is None:
+                return
             while not self._stop.is_set():
                 try:
                     self._queue.put(chunks, timeout=0.2)
                     break
                 except queue.Full:
                     continue
+
+    def _ready_pool(self, step: int, block: bool) -> np.ndarray | None:
+        """The built pool for a due step, or None: none is ready yet, or the
+        worker died (the first such step warns; training goes on on the last
+        pool)."""
+        if self.failure is not None and self._queue.empty():
+            if not self._failure_warned:
+                warnings.warn(
+                    f"PoolRefresher worker died ({self.failure}); training continues on the "
+                    f"stale augmentation pool -- fresh augmentation is lost from step {step} on")
+                self._failure_warned = True
+            return None
+        try:
+            return self._queue.get(timeout=600.0) if block else self._queue.get_nowait()
+        except queue.Empty:
+            return None
 
     def maybe_swap(self, packed, step: int, block: bool = False) -> bool:
         """Copies a regenerated pool into ``packed``'s audio chunks if a swap
@@ -147,21 +180,29 @@ class PoolRefresher:
         once; its buffer could then be rebuilt only after an event recorded
         behind the copy had completed.  The one sync per swap costs the
         steps queued at that moment, every ``interval`` steps.
+
+        Over a mesh every rank calls this at every step.  At a due step rank
+        0 decides, the other ranks learn its decision from a one-element
+        broadcast (its ``item()`` waits for it), and a swap broadcasts rank
+        0's new chunks into every rank's tensor in place (``Mesh.broadcast``
+        moves their bytes: int16 crosses neither NCCL nor gloo), so every
+        rank swaps at the same steps to the same pool.  Both broadcasts count
+        among the mesh's collectives.
         """
         if step - self._last_swap_step < self.interval:
             return False
-        if self.failure is not None and self._queue.empty():
-            if not self._failure_warned:
-                warnings.warn(
-                    f"PoolRefresher worker died ({self.failure}); training continues on the "
-                    f"stale augmentation pool -- fresh augmentation is lost from step {step} on")
-                self._failure_warned = True
-            return False
-        try:
-            chunks = self._queue.get(timeout=600.0) if block else self._queue.get_nowait()
-        except queue.Empty:
+        chunks = self._ready_pool(step, block) if self.builds else None
+        if self.mesh is not None:
+            flag = torch.tensor([chunks is not None], dtype=torch.uint8, device=self.mesh.device)
+            if not self.mesh.broadcast(flag).item():
+                return False
+        elif chunks is None:
             return False
         self._last_swap_step = step
         self.swap_count += 1
-        _audio_part(packed).chunks.copy_(torch.from_numpy(chunks))
+        target = _audio_part(packed).chunks
+        if chunks is not None:
+            target.copy_(torch.from_numpy(chunks))
+        if self.mesh is not None:
+            self.mesh.broadcast(target)
         return True

@@ -4,13 +4,14 @@ periodic validation with two-step best-checkpoint selection, and
 checkpoints.  The corpus on the card is spectrograms, raw augmented audio
 (config ``raw_audio_training``: the frontend kernel runs inside the step) or
 both, and ``pool_refresh_steps`` refreshes the audio pools from a host thread
-(``data/refresh.py``).  A spectrogram corpus over the card's budget, or any
-with config ``corpus_residency: host``, stays in host RAM and each step's
-batch is drawn and gathered on the host and copied to the card
-(``data/host_stream.py``).  Over a data-parallel mesh (``mesh``: one rank per
-process, ``parallel/``) each rank computes its block of the global batch,
-the corpus is replicated or sharded (config ``corpus_sharding``), validation
-rows are split over the ranks, and only rank 0 writes files.
+(``data/refresh.py``; over a mesh rank 0 builds each pool and broadcasts
+it).  A spectrogram corpus over the card's budget, or any with config
+``corpus_residency: host``, stays in host RAM and each step's batch is drawn
+and gathered on the host and copied to the card (``data/host_stream.py``).
+Over a data-parallel mesh (``mesh``: one rank per process, ``parallel/``)
+each rank computes its block of the global batch, the corpus is replicated
+or sharded (config ``corpus_sharding``), validation rows are split over the
+ranks, and only rank 0 writes files.
 
 Schedules are padded with their last entry, Adam runs on probabilities'
 weighted BCE, validation runs every ``eval_step_interval`` steps and writes
@@ -22,11 +23,9 @@ Checkpoints keep the JAX package's file stems in the port's own format,
 ``torch.save`` of plain tensors (``best_weights.pt``, ``last_weights.pt``,
 ``restore/ckpt.pt``, ``train/<int(best_min * 10000)>_weights_<step>.pt``).
 The JAX package's migration of per-leaf Adam checkpoints has no port-side
-checkpoints to migrate and is left out.  Options of the JAX ``train()`` that
-this port does not carry raise NotImplementedError naming the ROADMAP queue
-item that brings them (pool refresh over more than one rank, item 13);
-TensorBoard summaries are not written (metrics.jsonl holds every eval's
-record).
+checkpoints to migrate and is left out.  When ``tensorboardX`` imports, rank
+0 also writes the JAX package's TensorBoard scalars under ``logs/train`` and
+``logs/validation``; metrics.jsonl holds every eval's record either way.
 """
 
 from __future__ import annotations
@@ -357,15 +356,15 @@ def model_summary(model: torch.nn.Module) -> str:
 FRONTEND_BACKENDS = ("xla", "pallas")
 
 
-def _check_ported(config: dict, mesh) -> None:
+def _check_frontend_backend(config: dict) -> None:
     backend = config.get("frontend_backend", "xla")
     if backend not in FRONTEND_BACKENDS:
         raise ValueError(f"frontend_backend must be one of {FRONTEND_BACKENDS}, got {backend!r}")
-    size = getattr(mesh, "size", mesh) or 1
-    if int(size) > 1 and int(config.get("pool_refresh_steps", 0) or 0) > 0:
-        raise NotImplementedError(
-            f"pool_refresh_steps over a mesh of {size} ranks is not ported yet: ROADMAP queue "
-            "item 13 (rank 0 builds each pool and broadcasts it at an agreed swap step)")
+
+
+# the JAX train()'s notice, word for word
+REFRESH_IGNORED = ("pool_refresh_steps ignored: background pool refresh applies to HBM-resident "
+                   "clips pools, not host-streamed/mesh-sharded corpora")
 
 
 def _pack(config: dict, feature_handler, dev: torch.device, mesh):
@@ -390,6 +389,22 @@ def _pack(config: dict, feature_handler, dev: torch.device, mesh):
     return pack_for_mesh(feature_handler.providers, config, mesh)
 
 
+# the train step's scalars that the TensorBoard summaries carry
+TRAIN_SUMMARIES = ("loss", "accuracy", "recall", "precision", "auc")
+
+
+def _summary_writers(train_dir: str) -> dict:
+    """tensorboardX writers of ``logs/train`` and ``logs/validation`` under
+    ``train_dir``, as the JAX train() opens them; none when tensorboardX
+    does not import (it is optional, and guards no device)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return {}
+    return {name: SummaryWriter(os.path.join(train_dir, "logs", name))
+            for name in ("train", "validation")}
+
+
 def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = False,
           device=None, mesh=None):
     """Trains a model on ``device`` (default the card); returns (model,
@@ -407,7 +422,7 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     """
     from microwakeword_tpu_torch.parallel.mesh import resolve_mesh
 
-    _check_ported(config, mesh)
+    _check_frontend_backend(config)
     dev = resolve_device(device)
     mesh = resolve_mesh(mesh, dev)
     if mesh is not None:
@@ -452,24 +467,34 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     eval_probs = make_eval_fn(bundle, mesh=mesh)
     refresher = None
     refresh_steps = int(config.get("pool_refresh_steps", 0) or 0)
+    if refresh_steps > 0 and (producer is not None or sharded):
+        if main:
+            print(REFRESH_IGNORED, flush=True)
+        refresh_steps = 0
     if refresh_steps > 0:
-        refresher = PoolRefresher(feature_handler, packed, refresh_steps).start()
+        refresher = PoolRefresher(feature_handler, packed, refresh_steps, mesh=mesh).start()
+    writers = _summary_writers(train_dir) if main else {}
     try:
         out = _train_loop(config, feature_handler, restore_checkpoint, model, train_step,
-                          eval_probs, refresher, producer, main)
+                          eval_probs, refresher, producer, main, writers)
     finally:
         if refresher is not None:
             refresher.stop()
+        for writer in writers.values():
+            writer.close()
     if mesh is not None:
         mesh.barrier()  # rank 0's files are written before any rank reads them
     return out
 
 
 def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
-                train_step: TrainStep, eval_probs, refresher, producer=None, main: bool = True):
+                train_step: TrainStep, eval_probs, refresher, producer=None, main: bool = True,
+                writers: dict | None = None):
     """train()'s steps, evals and checkpoints; returns (model, history).  With
     a ``producer`` (host mode) each step's batch comes from it; only ``main``
-    (rank 0 of a mesh) writes files."""
+    (rank 0 of a mesh) writes files, and the TensorBoard scalars to
+    ``writers`` (``_summary_writers``) at the JAX package's steps."""
+    writers = writers or {}
     train_dir = config["train_dir"]
     phases = resolve_schedules(config)
     total_steps = sum(p["steps"] for p in phases)
@@ -563,6 +588,9 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
 
         if step % eval_interval == 0 or step == total_steps:
             sm = {k: float(v) for k, v in step_metrics.items()}
+            if "train" in writers:
+                for k in TRAIN_SUMMARIES:
+                    writers["train"].add_scalar(k, sm[k], step)
             if main:
                 _save(os.path.join(train_dir, "last_weights.pt"), _weights_state(model))
 
@@ -571,6 +599,9 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
                 vp = eval_probs(model, val_x)
                 ap = eval_probs(model, ambient_x) if ambient_x is not None and len(ambient_x) else None
                 val_metrics = M.validation_metrics(vp, val_y, ap, ambient_hours)
+                if "validation" in writers:
+                    for k, v in val_metrics.items():
+                        writers["validation"].add_scalar(k, v, step)
                 current_min = float(val_metrics[minimization_metric]) if minimization_metric else 0.0
                 current_max = float(val_metrics[maximization_metric])
                 # per-eval breadcrumb (reference train.py:391-399)

@@ -18,8 +18,8 @@ store, against the JAX package where it has a counterpart.
 - ``--device cpu --mesh 2`` trains on two gloo ranks, rank 0 alone writes
   the artifacts, and the weights equal ``--mesh off``'s; ``sweep --mesh 2``'s
   members equal the solo sweep's;
-- what the port does not carry yet (pool refresh over a mesh) raises
-  NotImplementedError naming its ROADMAP queue item.
+- pool refresh over a mesh refuses a spectrogram corpus as the solo run
+  does (ValueError), in a gloo group of one rank in this process.
 """
 
 import json
@@ -416,15 +416,22 @@ def test_inception_raises(store, tmp_path):
 
 
 def test_train_options_not_ported_raise(trained, tmp_path):
-    """Pool refresh over a mesh of more than one rank is not ported (ROADMAP
-    queue item 13); it raises before any rank is needed.  (A mesh trains:
-    tests/test_torch_parallel.py; host streaming, which raised here before,
-    trains: tests/test_torch_host_stream.py.)"""
+    """Pool refresh over a mesh raised NotImplementedError before its slice;
+    now a mesh takes it, and, as the solo run and the JAX package's mesh
+    train() do, refuses a replicated spectrogram corpus with it (ValueError:
+    refresh rebuilds raw-audio pools).  A mesh of one gloo rank in this
+    process; refresh over two ranks: tests/test_torch_parallel.py."""
+    from microwakeword_tpu_torch.parallel import mesh as M
+
     _, config, _ = trained
     config = dict(config, train_dir=str(tmp_path / "run"), pool_refresh_steps=10)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        T.train(build_model("mixednet", config["model_config"]), config, FeatureHandler(config),
-                device="cpu", mesh=2)
+    mesh = M.init_mesh(1, 0, "cpu", init_method=f"tcp://localhost:{M.free_port()}")
+    try:
+        with pytest.raises(ValueError, match="requires raw-audio training"):
+            T.train(build_model("mixednet", config["model_config"]), config,
+                    FeatureHandler(config), device="cpu", mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize("option,match", [

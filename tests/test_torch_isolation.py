@@ -46,6 +46,7 @@ from microwakeword_tpu_torch.data import host_stream
 from microwakeword_tpu_torch.parallel import population
 from microwakeword_tpu_torch.export import manifest, tflite, torch_export
 from microwakeword_tpu_torch import native
+from microwakeword_tpu_torch.frontend import fixedpoint, reference
 bundle = build_model("mixednet", presets.flagship_config())
 model = bundle.init(torch.Generator().manual_seed(0), device="cpu")
 state = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -89,6 +90,8 @@ assert probs.shape == (48,), probs.shape
 wav = os.path.join(root, "a.wav")
 native.wav_write_16k_i16(wav, audio)
 assert np.array_equal(io.load_audio(wav), audio / np.float32(32768.0))
+for fe in (reference.MicroFrontend(device="cpu"), fixedpoint.MicroFrontendInt(device="cpu")):
+    assert tuple(fe.process_clip(audio).shape) == (48, 40)
 assert "tensorflow" not in sys.modules  # only the TFLite functions import it
 added = set(sys.modules) - before
 print(json.dumps(sorted(added)))
@@ -112,7 +115,7 @@ def test_import_and_predict_load_no_jax():
                  "audio.augmentation", "audio.clips", "audio.spectrograms", "models.inception",
                  "export.native_runtime", "export.native_quant", "native", "data.host_stream",
                  "parallel.population", "sweep", "export.manifest", "export.tflite",
-                 "export.torch_export"):
+                 "export.torch_export", "frontend.reference", "frontend.fixedpoint"):
         assert f"microwakeword_tpu_torch.{name}" in added, name
     assert [m for m in added if _forbidden(m)] == []
     assert "yaml" not in added  # only the CLI's main() reads YAML
@@ -159,6 +162,16 @@ def test_scan_covers_the_export_path():
     scanned = {str(p.relative_to(REPO)) for p in _sources()}
     for name in ("models/inception.py", "export/native_runtime.py", "export/native_quant.py",
                  "native.py", "_build.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
+
+
+def test_scan_covers_the_host_frontends():
+    """The scan below reaches the float and integer-exact host frontends and
+    the refresh over a mesh (the JAX package's ``frontend/reference.py`` and
+    ``fixedpoint.py`` are NumPy modules the port may not import)."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("frontend/reference.py", "frontend/fixedpoint.py", "frontend/__init__.py",
+                 "data/refresh.py", "parallel/mesh.py"):
         assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
@@ -281,3 +294,22 @@ def test_audio_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         sampler.pack_audio_data([clips])
     assert sampler.pack_audio_data([clips], "cpu").chunks.shape[1] == 160
+
+
+def test_host_frontends_default_to_cuda(monkeypatch):
+    """The host frontends run on the card unless the CPU is asked for."""
+    from microwakeword_tpu_torch.frontend import fixedpoint, reference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    audio = np.zeros(800, np.int16)
+    frames = np.zeros((1, 480), np.int16)
+    for call in (lambda: reference.MicroFrontend(), lambda: fixedpoint.MicroFrontendInt(),
+                 lambda: reference.generate_features_for_clip(audio),
+                 lambda: fixedpoint.generate_features_for_clip(audio),
+                 lambda: reference.frontend_frames(frames, np.zeros(40)),
+                 lambda: fixedpoint.frontend_frames_int(frames, np.zeros(40, np.int64)),
+                 lambda: fixedpoint.kiss_fftr_int16(np.zeros((1, 512), np.int64))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert reference.generate_features_for_clip(audio, device="cpu").shape == (3, 40)
+    assert fixedpoint.generate_features_for_clip(audio, device="cpu").shape == (3, 40)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card, and
-the data-parallel step around the frontend kernel in a NCCL group of one.
+"""The port's CUDA kernels against their plain versions, on the card, the
+data-parallel step around the frontend kernel and the pool refresh in a NCCL
+group of one, and the host frontends on the card against the CPU.
 
 These tests need an NVIDIA GPU and skip without one; the kernels have no CPU
 mode.  The file imports only the port, so it also runs where JAX is absent:
@@ -150,3 +151,72 @@ def test_nccl_world1_raw_audio_step_equals_solo(cuda):
     (solo_losses, solo), (dp_losses, dp) = runs
     np.testing.assert_allclose(dp_losses, solo_losses, rtol=0, atol=1e-6)
     assert max(float((dp[k] - solo[k]).abs().max()) for k in solo) <= 1e-6
+
+
+class _Pools:
+    """A clips-type provider whose successive builds return ``pools`` in
+    order (the last one again once they run out)."""
+
+    sampling_weight = penalty_weight = label = 1.0
+    truncation_strategy = "random"
+
+    def __init__(self, pools):
+        self.pools, self.calls = pools, 0
+
+    def generate_audio_pool(self, shard_index=0, shard_count=1):
+        self.calls += 1
+        return self.pools[min(self.calls, len(self.pools)) - 1]
+
+
+@pytest.mark.cuda
+def test_nccl_world1_refresh_swaps_in_place(cuda):
+    """Pool refresh over a NCCL group of one rank: the rank builds, swaps at
+    each due step (blocking) with one flag and one chunk broadcast, and the
+    pool tensor on the card holds the new pool in place."""
+    from microwakeword_tpu_torch.data.refresh import PoolRefresher
+    from microwakeword_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(9)
+    pools = [[rng.integers(-9000, 9000, 8000).astype(np.int16) for _ in range(6)]
+             for _ in range(4)]
+    provider = _Pools(pools)
+    data = sampler.pack_audio_data([provider], cuda)
+    chunks, ptr = data.chunks, data.chunks.data_ptr()
+    mesh = M.init_mesh(1, 0, cuda, init_method=f"tcp://localhost:{M.free_port()}")
+    try:
+        refresher = PoolRefresher(types.SimpleNamespace(providers=[provider]), data, 2,
+                                  mesh=mesh).start()
+        try:
+            swaps = []
+            for step in range(1, 5):
+                before = mesh.collectives
+                if refresher.maybe_swap(data, step, block=True):
+                    swaps.append((step, mesh.collectives - before, data.chunks.clone()))
+        finally:
+            refresher.stop()
+    finally:
+        torch.distributed.destroy_process_group()
+    assert [(s, n) for s, n, _ in swaps] == [(2, 2), (4, 2)]
+    assert data.chunks.data_ptr() == ptr and data.chunks is chunks
+    for (_, _, got), pool in zip(swaps, pools[1:]):
+        assert torch.equal(got.cpu(), sampler.pack_audio_data([_Pools([pool])], "cpu").chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_ms", [10, 20])
+def test_host_frontends_on_card_equal_cpu(cuda, step_ms):
+    """frontend/fixedpoint.py on the card equals the CPU bit for bit;
+    frontend/reference.py passes the Q6 gate against the CPU."""
+    from microwakeword_tpu_torch.frontend import fixedpoint, reference
+
+    rng = np.random.default_rng(10)
+    t = np.arange(24000) / 16000
+    audio = np.clip(rng.normal(0, 800, t.size) + 9000 * np.sin(2 * np.pi * 1500 * t)
+                    * (np.sin(2 * np.pi * 5 * t) > 0), -32768, 32767).astype(np.int16)
+    got = fixedpoint.generate_features_for_clip(audio, step_ms, device=cuda)
+    assert got.is_cuda
+    want = fixedpoint.generate_features_for_clip(audio, step_ms, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    got = reference.generate_features_for_clip(audio, step_ms, device=cuda)
+    want = reference.generate_features_for_clip(audio, step_ms, device="cpu")
+    gate.assert_q6_gate(got.cpu().numpy(), want.numpy())

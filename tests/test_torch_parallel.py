@@ -19,8 +19,18 @@ package's mesh functions on its 8 CPU devices:
 - ``batched_track_probs`` against JAX's on a 2-device mesh (1e-5);
 - ``streaming_model_roc``: the same global curve on both ranks, equal to the
   solo curve;
-- host residency with a mesh raises ValueError.
+- host residency with a mesh raises ValueError;
+- pool refresh over the mesh: rank 0 alone builds (its provider draws fresh
+  entropy, as augmentation does), the ranks swap at the same steps to equal
+  pools, and the refreshing two-rank run in float64 equals a refreshing solo
+  run fed rank 0's pools (1e-9);
+- a sharded spectrogram corpus with ``pool_refresh_steps`` prints the JAX
+  package's notice and trains without refresh, as JAX's mesh train() does.
 """
+
+import contextlib
+import io
+import types
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +39,7 @@ import pytest
 import torch
 
 from microwakeword_tpu.data.host_stream import HostStreamedData
+from microwakeword_tpu.data.store import FeatureHandler as JaxFeatureHandler
 from microwakeword_tpu.models import build_model as jax_build_model
 from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
 from microwakeword_tpu.parallel import corpus as JC
@@ -37,6 +48,7 @@ from microwakeword_tpu.parallel import mesh as JM
 from microwakeword_tpu.train import loop as JT
 from microwakeword_tpu_torch.data import sampler as S
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
+from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
 from microwakeword_tpu_torch.evaluate import streaming_eval as E
 from microwakeword_tpu_torch.models import MixedNetConfig, build_model, convert
@@ -126,6 +138,65 @@ def _audio_providers():
 
     return [_AudioProvider(1.0, 1.0, "truncate_start", [clip(True) for _ in range(5)]),
             _AudioProvider(0.0, 1.0, "random", [clip(False) for _ in range(5)])]
+
+
+class _FreshAudioProvider(_AudioProvider):
+    """A clips-type provider whose first pool is ``audio`` and whose later
+    pools add noise drawn from fresh entropy, as augmentation does, so that
+    two ranks would build different pools; it keeps the pools it built.
+    Given ``replay`` (rank 0's built pools), it returns those in order."""
+
+    def __init__(self, label, weight, strategy, audio, replay=None):
+        super().__init__(label, weight, strategy, audio)
+        self.calls, self.built, self.replay = 0, [], replay
+
+    def generate_audio_pool(self, shard_index=0, shard_count=1):
+        self.calls += 1
+        if self.calls == 1:  # the pack
+            return self.audio
+        if self.replay is not None:
+            pool = self.replay[len(self.built)]
+        else:
+            rng = np.random.default_rng()
+            pool = [np.clip(c + rng.integers(-2000, 2000, len(c)), -32768, 32767).astype(np.int16)
+                    for c in self.audio]
+        self.built.append(pool)
+        return pool
+
+
+REFRESH_EVERY, REFRESH_STEPS = 2, 6
+
+
+def _refresh_run(mesh=None, replay=None):
+    """REFRESH_STEPS float64 steps of the raw-audio case with a blocking pool
+    refresh every REFRESH_EVERY steps: this rank's data-parallel step, or the
+    solo step fed ``replay`` (each provider's pools, in order)."""
+    providers = [_FreshAudioProvider(p.label, p.sampling_weight, p.truncation_strategy, p.audio,
+                                     None if replay is None else replay[i])
+                 for i, p in enumerate(_audio_providers())]
+    packed = S.pack_audio_data(providers, "cpu")
+    bundle = _bundle("raw_audio")
+    model = bundle.init(torch.Generator().manual_seed(5), device="cpu").to(torch.float64)
+    gen = torch.Generator().manual_seed(3)
+    if mesh is None:
+        step = T.make_train_step(bundle, model, packed, B, L, generator=gen)
+    else:
+        step = make_sharded_train_step(bundle, model, packed, B, L, mesh, generator=gen)
+    refresher = PoolRefresher(types.SimpleNamespace(providers=providers), packed, REFRESH_EVERY,
+                              mesh=mesh).start()
+    losses, swaps, collectives = [], [], []
+    try:
+        for i in range(1, REFRESH_STEPS + 1):
+            losses.append(float(step.step(**PHASE)["loss"]))
+            before = mesh.collectives if mesh else 0
+            if refresher.maybe_swap(packed, i, block=True):
+                swaps.append((i, packed.chunks.clone()))
+            collectives.append(mesh.collectives - before if mesh else 0)
+    finally:
+        refresher.stop()
+    return {"losses": losses, "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "swaps": swaps, "collectives": collectives, "thread": refresher._thread.ident,
+            "built": [p.built for p in providers]}
 
 
 def _corpus(case):
@@ -233,7 +304,19 @@ def _rank_checks(store_config):
         out["host_error"] = None
     except ValueError as e:
         out["host_error"] = str(e)
+
+    out["refresh"] = _refresh_run(mesh)
+    config = _sharded_refresh_config(store_config, "port_sharded_refresh")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, history = T.train(bundle, config, FeatureHandler(config), device="cpu", mesh=mesh)
+    out["sharded_refresh"] = (printed.getvalue().splitlines(), history)
     return out
+
+
+def _sharded_refresh_config(store_config, name):
+    return dict(store_config, train_dir=f"{store_config['train_dir']}_{name}",
+                corpus_sharding="shard", pool_refresh_steps=1)
 
 
 @pytest.fixture(scope="module")
@@ -408,3 +491,54 @@ def test_streaming_roc_is_global_on_every_rank(ranks, store_config):
 def test_host_residency_with_mesh_raises(ranks):
     for out in ranks:
         assert out["host_error"] is not None and "corpus_residency: host" in out["host_error"]
+
+
+def test_mesh_refresh_swaps_rank0_pools(ranks):
+    """Rank 0 alone runs the build thread; the ranks swap at the same due
+    steps to equal pools that are rank 0's builds, each swap one flag and one
+    chunk broadcast, no collective between due steps; every rank ends with
+    the same weights."""
+    a, b = (out["refresh"] for out in ranks)
+    assert a["thread"] is not None and b["thread"] is None
+    assert [s for s, _ in a["swaps"]] == [s for s, _ in b["swaps"]] == [2, 4, 6]
+    for (_, x), (_, y) in zip(a["swaps"], b["swaps"]):
+        assert torch.equal(x, y)
+    assert all(not built for built in b["built"])  # rank 1 built nothing
+    initial = S.pack_audio_data(_audio_providers(), "cpu").chunks
+    assert not torch.equal(a["swaps"][0][1], initial)
+    for out in (a, b):
+        assert out["collectives"] == [0, 2, 0, 2, 0, 2]
+    assert all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+
+
+def test_mesh_refresh_equals_solo_fed_rank0_pools(ranks):
+    """In float64 the refreshing two-rank run equals a refreshing solo run
+    whose providers return rank 0's pools in order (1e-9)."""
+    rank0 = ranks[0]["refresh"]
+    solo = _refresh_run(replay=rank0["built"])
+    assert [s for s, _ in solo["swaps"]] == [s for s, _ in rank0["swaps"]]
+    for (_, x), (_, y) in zip(solo["swaps"], rank0["swaps"]):
+        assert torch.equal(x, y)
+    for out in ranks:
+        np.testing.assert_allclose(out["refresh"]["losses"], solo["losses"], rtol=1e-9)
+        for key, value in solo["state"].items():
+            np.testing.assert_allclose(out["refresh"]["state"][key].numpy(), value.numpy(),
+                                       atol=1e-9, err_msg=key)
+
+
+def test_sharded_corpus_refresh_is_ignored_as_in_jax(ranks, store_config):
+    """A sharded spectrogram corpus with pool_refresh_steps: rank 0 prints the
+    JAX notice and both ranks train without refresh; JAX's train() on a
+    2-device mesh prints the same notice and trains."""
+    for out in ranks:
+        printed, history = out["sharded_refresh"]
+        assert (T.REFRESH_IGNORED in printed) == (out["rank"] == 0)
+        assert [r["step"] for r in history] == [2] and "pool_swaps" not in history[-1]
+        assert np.isfinite(history[-1]["train"]["loss"])
+    config = _sharded_refresh_config(store_config, "jax_sharded_refresh")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _, history = JT.train(jax_build_model("mixednet", JaxConfig(**MIXEDNET)), config,
+                              JaxFeatureHandler(config), mesh=JM.create_mesh(2))
+    assert T.REFRESH_IGNORED in printed.getvalue().splitlines()
+    assert [r["step"] for r in history] == [2]

@@ -7,11 +7,22 @@
   on it;
 - a dead worker warns once (tests/test_data.py:766);
 - a pool of another size than the packed slots warns (tests/test_data.py:796);
-- ``block=True`` waits for the build; a mixed corpus refreshes its audio half.
+- ``block=True`` waits for the build; a mixed corpus refreshes its audio half;
+- a host-streamed corpus with ``pool_refresh_steps`` prints the JAX
+  package's notice and trains without refresh in both packages, and the
+  port's run equals its run without the option, exactly
+  (microwakeword_tpu/train/loop.py:605-612);
+- the same runs' TensorBoard summaries: the port's event files carry the JAX
+  run's tags at the JAX run's steps, and metrics.jsonl's values.
 """
 
+import contextlib
+import io
+import json
+import struct
 import types
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +30,10 @@ import torch
 
 from microwakeword_tpu.data import sampler as JS
 from microwakeword_tpu.data.refresh import PoolRefresher as JaxPoolRefresher
+from microwakeword_tpu.data.store import FeatureHandler as JaxFeatureHandler
+from microwakeword_tpu.models import build_model as jax_build_model
+from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
+from microwakeword_tpu.train import loop as JT
 from microwakeword_tpu_torch.audio.io import save_clip
 from microwakeword_tpu_torch.data import sampler as S
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
@@ -193,3 +208,104 @@ def test_blocking_swap_and_mixed_corpus(tmp_path):
     assert torch.equal(mixed.spec.frames, frames)
     with pytest.raises(ValueError, match="raw-audio training"):
         PoolRefresher(types.SimpleNamespace(providers=spec), mixed.spec, 1)
+
+
+# ---- refresh on a corpus it does not apply to; TensorBoard summaries -------
+
+SMALL = dict(pointwise_filters=(8, 8), repeat_in_block=(1, 1), mixconv_kernel_sizes=((3,), (5,)),
+             residual_connection=(False, False), first_conv_filters=8, first_conv_kernel_size=3,
+             spectrogram_length=25)
+
+
+@pytest.fixture(scope="module")
+def host_runs(tmp_path_factory):
+    """A spectrogram store with validation sets, trained with
+    ``corpus_residency: host``: the JAX package and the port with
+    ``pool_refresh_steps: 2``, and the port without it.  Returns each run's
+    printed lines, history and train_dir, and the port's final weights."""
+    root = tmp_path_factory.mktemp("refresh_host")
+    rng = np.random.default_rng(0)
+    for name, positive, modes in (("pos", True, {"training": 20, "validation": 6}),
+                                  ("neg", False, {"training": 24, "validation": 6,
+                                                  "validation_ambient": 2})):
+        for mode, n in modes.items():
+            lo, hi = (200, 260) if mode.endswith("ambient") else (20, 60)
+            specs = []
+            for _ in range(n):
+                spec = rng.integers(0, 80, (int(rng.integers(lo, hi)), 40)).astype(np.uint16)
+                spec[:, 20:] += 300 if positive else 0
+                spec[:, :20] += 0 if positive else 300
+                specs.append(spec)
+            RaggedSpectrogramStore.create(str(root / name / mode / "w_mmap"), specs)
+    base = {
+        "window_step_ms": 10, "batch_size": 16, "spectrogram_length": 25, "training_steps": [4],
+        "learning_rates": [0.01], "eval_step_interval": 2, "seed": 5, "steps_per_call": 1,
+        "corpus_residency": "host", "minimization_metric": "ambient_false_positives_per_hour",
+        "maximization_metric": "average_viable_recall", "target_minimization": 0.9,
+        "features": [{"features_dir": str(root / name), "truth": name == "pos",
+                      "sampling_weight": 1.0, "penalty_weight": 1.0,
+                      "truncation_strategy": "random", "type": "mmap"} for name in ("pos", "neg")],
+    }
+    runs = {}
+    for label, refresh, package in (("jax", 2, "jax"), ("port", 2, "port"),
+                                    ("port_plain", 0, "port")):
+        config = dict(base, train_dir=str(root / label), pool_refresh_steps=refresh)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if package == "jax":
+                _, history = JT.train(jax_build_model("mixednet", JaxConfig(**SMALL)), config,
+                                      JaxFeatureHandler(config))
+                state = None
+            else:
+                model, history = T.train(build_model("mixednet", MixedNetConfig(**SMALL)), config,
+                                         FeatureHandler(config, "cpu"), device="cpu")
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+        runs[label] = dict(printed=out.getvalue().splitlines(), history=history, state=state,
+                           train_dir=config["train_dir"])
+    return runs
+
+
+def test_host_mode_refresh_is_ignored_as_in_jax(host_runs):
+    """Both packages print the JAX notice and train; the port's losses and
+    weights equal its own run without pool_refresh_steps, exactly."""
+    for label in ("jax", "port"):
+        assert T.REFRESH_IGNORED in host_runs[label]["printed"], label
+        assert [r["step"] for r in host_runs[label]["history"]] == [2, 4], label
+    assert T.REFRESH_IGNORED not in host_runs["port_plain"]["printed"]
+    got, want = host_runs["port"], host_runs["port_plain"]
+    assert ([r["train"]["loss"] for r in got["history"]]
+            == [r["train"]["loss"] for r in want["history"]])
+    assert "pool_swaps" not in got["history"][-1]
+    assert all(torch.equal(got["state"][k], want["state"][k]) for k in want["state"])
+
+
+def _events(log_dir) -> list:
+    """(tag, step, value) of every scalar in a tensorboardX event directory
+    (TFRecord framing: length, its CRC, an Event proto, its CRC)."""
+    from tensorboardX.proto.event_pb2 import Event
+
+    out = []
+    for path in sorted(log_dir.iterdir()):
+        data = path.read_bytes()
+        i = 0
+        while i < len(data):
+            (n,) = struct.unpack("<Q", data[i : i + 8])
+            event = Event.FromString(data[i + 12 : i + 12 + n])
+            i += 12 + n + 4
+            out += [(v.tag, event.step, v.simple_value) for v in event.summary.value]
+    return out
+
+
+def test_tensorboard_summaries_match_jax(host_runs):
+    """logs/train and logs/validation hold the JAX run's tags at its steps,
+    with the values of the port's metrics.jsonl (float32 in the events)."""
+    port, jax_run = Path(host_runs["port"]["train_dir"]), Path(host_runs["jax"]["train_dir"])
+    records = [json.loads(ln) for ln in (port / "metrics.jsonl").read_text().splitlines()]
+    for split, key in (("train", "train"), ("validation", "validation")):
+        got = _events(port / "logs" / split)
+        want = _events(jax_run / "logs" / split)
+        assert len(got) == len(want) > 0, split
+        assert sorted((t, s) for t, s, _ in got) == sorted((t, s) for t, s, _ in want), split
+        values = {(tag, r["step"]): np.float32(v) for r in records for tag, v in r[key].items()}
+        for tag, step, value in got:
+            assert np.float32(value) == values[(tag, step)], (split, tag, step)
