@@ -458,7 +458,7 @@ def phase_training(dev: torch.device, smi: str, seed: int, root: str):
               f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f} "
               f"auc {v['auc']:.5f} faph {v['ambient_false_positives_per_hour']:.3f} "
               f"avr {v['average_viable_recall']:.4f}; {rec['steps_per_sec']:.1f} steps/s "
-              f"(host clock, no sync)")
+              f"(host clock, to the eval's sync)")
     print(f"phase 6 streamed test ROC AUC {auc:.5f}; test accuracy "
           f"{out['accuracy']['accuracy']:.4f}; step-0 loss {loss0:.5f}", flush=True)
     check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")
@@ -903,7 +903,8 @@ def print_history(label: str, history: list) -> None:
         print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
               f"{rec['train']['accuracy']:.4f}; validation accuracy {v.get('accuracy', float('nan')):.4f} "
               f"faph {v.get('ambient_false_positives_per_hour', float('nan')):.3f}; pool swaps "
-              f"{rec.get('pool_swaps', 0)}; {rec['steps_per_sec']:.1f} steps/s (host clock, no sync)")
+              f"{rec.get('pool_swaps', 0)}; {rec['steps_per_sec']:.1f} steps/s "
+              f"(host clock, to the eval's sync)")
 
 
 def phase_raw_audio(dev: torch.device, smi: str, seed: int, root: str, built: dict) -> dict:
@@ -1546,7 +1547,7 @@ def phase_host_stream(dev: torch.device, smi: str, seed: int, root: str, spectro
         v = rec["validation"]
         print(f"  step {rec['step']}: train loss {rec['train']['loss']:.5f} accuracy "
               f"{rec['train']['accuracy']:.4f}; validation accuracy {v['accuracy']:.4f}; "
-              f"{rec['steps_per_sec']:.1f} steps/s (host clock, no sync)")
+              f"{rec['steps_per_sec']:.1f} steps/s (host clock, to the eval's sync)")
     last = history[-1]["train"]
     print(f"phase 15 step-0 loss {loss0:.5f}", flush=True)
     check(last["loss"] < 0.5 * loss0, f"loss {last['loss']} did not fall below half of {loss0}")

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from microwakeword_tpu_torch.data import sampler as S
+from microwakeword_tpu_torch.trace import span
 
 
 def _audio_part(packed):
@@ -187,7 +188,9 @@ class PoolRefresher:
         0's new chunks into every rank's tensor in place (``Mesh.broadcast``
         moves their bytes: int16 crosses neither NCCL nor gloo), so every
         rank swaps at the same steps to the same pool.  Both broadcasts count
-        among the mesh's collectives.
+        among the mesh's collectives.  Under a torch profiler a swap's copy
+        is a ``refresh.swap`` span (``trace.py``); the build on the worker
+        thread has none.
         """
         if step - self._last_swap_step < self.interval:
             return False
@@ -200,9 +203,10 @@ class PoolRefresher:
             return False
         self._last_swap_step = step
         self.swap_count += 1
-        target = _audio_part(packed).chunks
-        if chunks is not None:
-            target.copy_(torch.from_numpy(chunks))
-        if self.mesh is not None:
-            self.mesh.broadcast(target)
+        with span("refresh.swap"):
+            target = _audio_part(packed).chunks
+            if chunks is not None:
+                target.copy_(torch.from_numpy(chunks))
+            if self.mesh is not None:
+                self.mesh.broadcast(target)
         return True

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from microwakeword_tpu_torch.evaluate import roc as R
+from microwakeword_tpu_torch.trace import span
 
 
 def _track_stream_probs(bundle, model, track, stream_fn=None) -> torch.Tensor:
@@ -54,17 +55,19 @@ def ambient_accept_counts(
 
     Each item of ``probs_list`` is one track [T] or a batch of equal-length
     tracks [B, T].  Hours are the duration of the moving-averaged sequences
-    (the reference's convention), summed over tracks.
+    (the reference's convention), summed over tracks.  Under a torch
+    profiler the call is an ``accept.counts`` span (``trace.py``).
     """
-    total = np.zeros(len(cutoffs))
-    hours = 0.0
-    for probs in probs_list:
-        ma = R.moving_average(probs, sliding_window_length)
-        if ma.shape[-1]:
-            hours += ma.numel() * stride * step_s / 3600.0
-            counts = R.count_accepts(ma, cutoffs, ignore_slices_after_accept)
-            total += counts.reshape(-1, len(cutoffs)).sum(dim=0).cpu().numpy()
-    return total, hours
+    with span("accept.counts"):
+        total = np.zeros(len(cutoffs))
+        hours = 0.0
+        for probs in probs_list:
+            ma = R.moving_average(probs, sliding_window_length)
+            if ma.shape[-1]:
+                hours += ma.numel() * stride * step_s / 3600.0
+                counts = R.count_accepts(ma, cutoffs, ignore_slices_after_accept)
+                total += counts.reshape(-1, len(cutoffs)).sum(dim=0).cpu().numpy()
+        return total, hours
 
 
 def positive_detection_counts(max_probs, cutoffs):

@@ -37,6 +37,7 @@ import torch
 from microwakeword_tpu_torch import _build
 from microwakeword_tpu_torch.frontend import constants as C
 from microwakeword_tpu_torch.frontend import plain
+from microwakeword_tpu_torch.trace import span
 
 TILE = 32  # hops per block of launch A and per EMA tile (kTile in csrc/frontend.cu)
 _MEL_ROUNDS = 3  # mel channels per warp of launch A, at most (kMelRounds)
@@ -219,14 +220,16 @@ def stage_b(sf: torch.Tensor, carries: torch.Tensor) -> torch.Tensor:
 def frontend_batch(audio: torch.Tensor, step_ms: int = 10) -> torch.Tensor:
     """[B, N] int16/float32 samples -> [B, T, 40] float32 features in [0, 26].
 
-    T = 1 + (N - 480) // hop, and 0 when N < 480 (no launch then).
+    T = 1 + (N - 480) // hop, and 0 when N < 480 (no launch then).  Under a
+    torch profiler the call is a ``frontend.batch`` span (``trace.py``).
     """
     if not isinstance(audio, torch.Tensor):
         raise TypeError(f"audio must be a torch.Tensor, got {type(audio).__name__}")
-    if audio.device.type == "cpu":
-        return plain.frontend_batch(audio, step_ms)
-    sf, ends = stage_a(audio, step_ms)
-    return stage_b(sf, stage_carry(ends))
+    with span("frontend.batch"):
+        if audio.device.type == "cpu":
+            return plain.frontend_batch(audio, step_ms)
+        sf, ends = stage_a(audio, step_ms)
+        return stage_b(sf, stage_carry(ends))
 
 
 frontend_batch.launches = 0

@@ -26,6 +26,7 @@ import torch
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.frontend import frontend_batch
 from microwakeword_tpu_torch.frontend.plain import float_pcm_to_int16
+from microwakeword_tpu_torch.trace import span
 
 
 class Model:
@@ -54,7 +55,9 @@ class Model:
             t = (spec.shape[0] // bundle.stride) * bundle.stride
             if t <= 0:
                 return np.zeros((0,), np.float32)
-            return bundle.stream_scan(module, spec[None, :t].to(dev)).reshape(-1).cpu().numpy()
+            probs = bundle.stream_scan(module, spec[None, :t].to(dev))
+            with span("predict.copy_out"):
+                return probs.reshape(-1).cpu().numpy()
 
         return cls(predict, bundle.stride, dev, bundle, module)
 
@@ -105,9 +108,13 @@ class Model:
     @torch.inference_mode()
     def predict_clip(self, audio, step_ms: int = 10) -> np.ndarray:
         """Raw 16 kHz PCM (int16, or float in [-1, 1], truncated to int16 by
-        ``float_pcm_to_int16``) -> probabilities."""
-        audio = np.array(audio)
-        if audio.dtype.kind == "f":
-            audio = float_pcm_to_int16(audio)
-        pcm = torch.from_numpy(audio).to(self.device).reshape(1, -1)
-        return self._predict(frontend_batch(pcm, step_ms=step_ms)[0])
+        ``float_pcm_to_int16``) -> probabilities.  Under a torch profiler the
+        request is a ``predict.clip`` span holding ``predict.copy_in``,
+        ``frontend.batch`` and the backend's spans (``trace.py``)."""
+        with span("predict.clip"):
+            with span("predict.copy_in"):
+                audio = np.array(audio)
+                if audio.dtype.kind == "f":
+                    audio = float_pcm_to_int16(audio)
+                pcm = torch.from_numpy(audio).to(self.device).reshape(1, -1)
+            return self._predict(frontend_batch(pcm, step_ms=step_ms)[0])

@@ -20,6 +20,7 @@ import torch
 
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.models import inception, mixednet
+from microwakeword_tpu_torch.trace import span
 
 # name -> (config class, module class, input frames the valid convs consume)
 FAMILIES = {
@@ -90,18 +91,22 @@ class ModelBundle:
     def stream_scan(self, model: torch.nn.Module, x: torch.Tensor,
                     cache: dict | None = None) -> torch.Tensor:
         """Steps over a [B, T, F] spectrogram; T % stride frames at the end
-        are dropped.  Returns [B, T // stride, 1] per-step probabilities."""
-        b, t, _ = x.shape
-        steps = t // self.stride
-        if cache is None:
-            cache = self.stream_init(model, b)
-        probs = []
-        for i in range(steps):
-            p, cache = model.step(x[:, i * self.stride : (i + 1) * self.stride], cache)
-            probs.append(p)
-        if not probs:
-            return x.new_zeros((b, 0, 1))
-        return torch.stack(probs, dim=1)
+        are dropped.  Returns [B, T // stride, 1] per-step probabilities.
+        Under a torch profiler the scan is a ``stream.scan`` span holding one
+        ``stream.step`` per step (``trace.py``)."""
+        with span("stream.scan"):
+            b, t, _ = x.shape
+            steps = t // self.stride
+            if cache is None:
+                cache = self.stream_init(model, b)
+            probs = []
+            for i in range(steps):
+                with span("stream.step"):
+                    p, cache = model.step(x[:, i * self.stride : (i + 1) * self.stride], cache)
+                probs.append(p)
+            if not probs:
+                return x.new_zeros((b, 0, 1))
+            return torch.stack(probs, dim=1)
 
     # ---- static shape info -------------------------------------------
     @property

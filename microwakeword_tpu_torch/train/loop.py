@@ -47,6 +47,7 @@ from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.device import resolve_device
 from microwakeword_tpu_torch.models.inception import draw_keep_mask
 from microwakeword_tpu_torch.models.layers import BatchNorm
+from microwakeword_tpu_torch.trace import span
 from microwakeword_tpu_torch.train import metrics as M
 
 EPS = 1e-7  # Keras BinaryCrossentropy epsilon
@@ -121,7 +122,11 @@ class TrainStep:
     gathered batch of spectrogram windows instead (the host-streamed form,
     ``data/host_stream.py``), with a leading [steps] axis for several
     sub-steps.
-    Either reports the last sub-step's metrics (0-dim tensors).
+    Either reports the last sub-step's metrics (0-dim tensors).  Under a
+    torch profiler each sub-step is a ``train.step`` span holding
+    ``train.sample``, ``train.forward``, ``train.backward`` and
+    ``train.adam``, and the report a ``train.report`` after them
+    (``trace.py``).
 
     With a ``mesh`` (``parallel/mesh.py``) this is one rank's step of the
     data-parallel step on the global batch of ``batch_size`` rows
@@ -215,18 +220,21 @@ class TrainStep:
 
     def _sub_step(self, feats, labels, penalties, learning_rate: float,
                   positive_class_weight: float, negative_class_weight: float):
-        weights = penalties * torch.where(labels > 0.5, positive_class_weight, negative_class_weight)
-        keep = self._keep_mask()
-        probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype),
-                                          self.generator if keep is None else keep)
-        loss = weighted_bce(probs, labels, weights)
-        if self.mesh is not None:
-            loss = loss * self.share  # the ranks' losses sum to the global batch mean
-        grads = torch.autograd.grad(loss, self.params)
-        torch.cat([g.reshape(-1) for g in grads], out=self.grad)
-        if self.mesh is not None:
-            self.mesh.all_reduce(self.grad)
-        with torch.no_grad():
+        with span("train.forward"):
+            weights = penalties * torch.where(labels > 0.5, positive_class_weight,
+                                              negative_class_weight)
+            keep = self._keep_mask()
+            probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype),
+                                              self.generator if keep is None else keep)
+            loss = weighted_bce(probs, labels, weights)
+            if self.mesh is not None:
+                loss = loss * self.share  # the ranks' losses sum to the global batch mean
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, self.params)
+            torch.cat([g.reshape(-1) for g in grads], out=self.grad)
+            if self.mesh is not None:
+                self.mesh.all_reduce(self.grad)
+        with torch.no_grad(), span("train.adam"):
             self._adam(learning_rate)
         return probs.detach(), labels, loss.detach()
 
@@ -261,10 +269,13 @@ class TrainStep:
         masks, opt = self._split_phase(phase)
         n, rows = (self.local_batch, None) if self.sharded else (self.batch_size, self.rows)
         for _ in range(self.steps_per_call if steps is None else steps):
-            feats, labels, penalties = S.sample_any(
-                self.packed, self.generator, n, self.features_length, rows=rows, **masks)
-            last = self._sub_step(feats, labels, penalties, **opt)
-        return self._report(last)
+            with span("train.step"):
+                with span("train.sample"):
+                    feats, labels, penalties = S.sample_any(
+                        self.packed, self.generator, n, self.features_length, rows=rows, **masks)
+                last = self._sub_step(feats, labels, penalties, **opt)
+        with span("train.report"):
+            return self._report(last)
 
     def step_on_batch(self, windows, valid, labels, weights, **phase) -> dict:
         """The step on a gathered batch: windows [B, L, F] int16 (uint16
@@ -277,10 +288,13 @@ class TrainStep:
             batches = list(zip(windows, valid, labels, weights))
         r = slice(None) if self.rows is None else self.rows
         for w, v, y, pen in batches:
-            feats = S.finish_batch(self.generator, w[r], v[r], **masks, batch_size=w.shape[0],
-                                   rows=self.rows)
-            last = self._sub_step(feats, y[r], pen[r], **opt)
-        return self._report(last)
+            with span("train.step"):
+                with span("train.sample"):
+                    feats = S.finish_batch(self.generator, w[r], v[r], **masks,
+                                           batch_size=w.shape[0], rows=self.rows)
+                last = self._sub_step(feats, y[r], pen[r], **opt)
+        with span("train.report"):
+            return self._report(last)
 
 
 def make_train_step(bundle, model, packed, batch_size: int, features_length: int,
@@ -547,7 +561,10 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
     profile_steps = int(config.get("profile_steps", 20))
     profiler = None
 
-    step_times = []  # (n_steps, seconds) per call
+    # steps_per_sec: the steps of each eval interval over the host's time from
+    # the previous eval's record to this eval's float() of the step metrics,
+    # which waits for the card: steps done, not steps enqueued
+    interval_start, interval_steps = time.perf_counter(), 0
     step = 0
     while step < total_steps:
         if profile_dir and profiler is None and step >= profile_after:
@@ -569,14 +586,13 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
         next_eval = step + eval_interval - (step % eval_interval)
         room = min(phase_end, next_eval, total_steps) - step
         n = steps_per_call if room >= steps_per_call else 1
-        t0 = time.perf_counter()
         hyper = {k: v for k, v in phase.items() if k != "steps"}
         if producer is None:
             step_metrics = train_step.step(steps=n, **hyper)
         else:
             step_metrics = train_step.step_on_batch(*producer(n), **hyper)
-        step_times.append((n, time.perf_counter() - t0))
         step += n
+        interval_steps += n
         if refresher is not None:
             refresher.maybe_swap(train_step.packed, step,
                                  block=bool(config.get("pool_refresh_blocking", False)))
@@ -588,6 +604,7 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
 
         if step % eval_interval == 0 or step == total_steps:
             sm = {k: float(v) for k, v in step_metrics.items()}
+            steps_per_sec = interval_steps / max(time.perf_counter() - interval_start, 1e-9)
             if "train" in writers:
                 for k in TRAIN_SUMMARIES:
                     writers["train"].add_scalar(k, sm[k], step)
@@ -635,7 +652,6 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
                         _save(ckpt_path, {"weights": state,
                                           "opt_state": _opt_state_cpu(train_step), "step": step})
 
-            recent = step_times[-eval_interval:]
             record = {
                 "step": step + restored_from_step,
                 "train": sm,
@@ -643,7 +659,7 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
                 "best_minimization_quantity": best_min,
                 "best_maximization_quantity": best_max,
                 "best_no_faph_cutoff": best_no_faph_cutoff,
-                "steps_per_sec": float(sum(n for n, _ in recent) / max(sum(t for _, t in recent), 1e-9)),
+                "steps_per_sec": steps_per_sec,
             }
             if refresher is not None:
                 record["pool_swaps"] = refresher.swap_count
@@ -651,6 +667,7 @@ def _train_loop(config: dict, feature_handler, restore_checkpoint: bool, model,
             if main:
                 with open(history_path, "a") as f:
                     f.write(json.dumps(record) + "\n")
+            interval_start, interval_steps = time.perf_counter(), 0
 
     if profiler is not None and profile_dir:  # trace still open: short runs
         profiler.stop()
