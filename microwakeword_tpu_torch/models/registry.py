@@ -19,7 +19,7 @@ from typing import Any
 import torch
 
 from microwakeword_tpu_torch.device import resolve_device
-from microwakeword_tpu_torch.models import inception, mixednet
+from microwakeword_tpu_torch.models import inception, mixednet, stream_graph
 from microwakeword_tpu_torch.trace import span
 
 # name -> (config class, module class, input frames the valid convs consume)
@@ -91,12 +91,28 @@ class ModelBundle:
     def stream_scan(self, model: torch.nn.Module, x: torch.Tensor,
                     cache: dict | None = None) -> torch.Tensor:
         """Steps over a [B, T, F] spectrogram; T % stride frames at the end
-        are dropped.  Returns [B, T // stride, 1] per-step probabilities.
+        are dropped.  Returns [B, T // stride, 1] per-step probabilities in a
+        fresh tensor.
+
+        On a CUDA device, with the module in eval mode and at least one step,
+        the scan replays the module's CUDA graph of one step
+        (``stream_graph.py``), captured at the first scan of its key: the
+        input's batch, stride, feature width, dtype and device, the passed
+        cache's ring shapes, the float32 backend flags, and the data pointers
+        of every parameter and buffer (a rebound ``p.data`` recaptures, an
+        in-place update is seen).  The probabilities are the eager loop's,
+        bit for bit.  Otherwise (the CPU, a module in train mode, no step)
+        it runs the eager loop of ``model.step``.
+
         Under a torch profiler the scan is a ``stream.scan`` span holding one
-        ``stream.step`` per step (``trace.py``)."""
+        ``stream.step`` per step, each with a ``stream.replay`` inside when
+        it replays, and a ``stream.capture`` before the steps when it
+        captures (``trace.py``)."""
         with span("stream.scan"):
             b, t, _ = x.shape
             steps = t // self.stride
+            if stream_graph.replays(model, x, steps):
+                return stream_graph.scan(self, model, x, cache, steps)
             if cache is None:
                 cache = self.stream_init(model, b)
             probs = []

@@ -26,7 +26,15 @@ Spans, by layer:
 - frontend (``frontend/kernel.py``): ``frontend.batch``, one call of
   ``frontend_batch``, its three launches or the plain CPU path;
 - streaming step (``models/registry.py`` ``ModelBundle.stream_scan``):
-  ``stream.scan``, the whole scan, holding one ``stream.step`` per step;
+  ``stream.scan``, the whole scan, holding one ``stream.step`` per step.
+  On a CUDA device with the module in eval mode the scan replays a CUDA
+  graph of one step (``models/stream_graph.py``; the graph's key is the
+  input's batch, stride, feature width, dtype and device, a passed cache's
+  ring shapes, the float32 backend flags and the data pointers of the
+  parameters and buffers): then each ``stream.step`` holds one
+  ``stream.replay``, the graph's launch, and a scan that first captures a
+  graph for its key holds one ``stream.capture`` before its steps (warm-up
+  steps and the capture);
 - accept counting (``evaluate/streaming_eval.py``): ``accept.counts``, one
   call of ``ambient_accept_counts``, the counts brought to the host;
 - inference entry (``inference.py`` ``Model``): ``predict.clip``, one
