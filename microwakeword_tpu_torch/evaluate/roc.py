@@ -22,14 +22,21 @@ def _as_tensor(x, dtype) -> torch.Tensor:
 
 def moving_average(probs, window: int = 5) -> torch.Tensor:
     """Sliding-window mean over the last axis: [..., n] -> [..., n - window + 1]
-    float32, from a float64 cumulative sum (roc.py:20-27)."""
+    float32, each window summed on its own in float64, as
+    ``sliding_window_view(...).mean(-1)`` (reference test.py:337-341).  The
+    JAX package's difference of running sums (roc.py:20-27) loses a window's
+    tiny probabilities beside the stream's sum so far, and cutoff 0 then
+    misses accepts over saturated probabilities."""
     p = _as_tensor(probs, torch.float64)
     if p.dim() == 0:
         p = p.reshape(1)
-    if p.shape[-1] < window:
+    n = p.shape[-1] - window + 1
+    if n <= 0:
         return p.new_zeros(p.shape[:-1] + (0,), dtype=torch.float32)
-    c = torch.cumsum(torch.nn.functional.pad(p, (1, 0)), dim=-1)
-    return ((c[..., window:] - c[..., :-window]) / window).to(torch.float32)
+    total = p[..., :n]
+    for i in range(1, window):
+        total = total + p[..., i : i + n]
+    return (total / window).to(torch.float32)
 
 
 def count_accepts(probs, cutoffs, ignore_slices_after_accept: int) -> torch.Tensor:
