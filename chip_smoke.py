@@ -18,9 +18,10 @@ printing its own lines; any failure exits non-zero:
 4. the main path at the flagship MixedNet's full width (random weights from
    the seed, moved through models/convert.py): 64 streams of 10 s synthetic
    PCM -> frontend kernel -> stream_scan -> moving average -> cooldown accept
-   counts over the 101 default cutoffs; the launch count is set to 0 before
-   it and read after it, and the streamed probabilities are held against the
-   non-streaming forward pass;
+   counts over the 101 default cutoffs; the launch counts of the frontend
+   kernel and of the counting kernel (csrc/accepts.cu, one launch) are set
+   to 0 before it and read after it, and the streamed probabilities are
+   held against the non-streaming forward pass;
 5. times: the kernel (whole and each launch on its own), its plain version,
    a cuFFT yardstick of the filterbank stage and the whole path, with CUDA
    events after a warm-up, beside the kernel's bound on this card, at the
@@ -28,7 +29,11 @@ printing its own lines; any failure exits non-zero:
    20 ms and 8 clips of 10 minutes; the kernel and its plain version are
    timed alike (events around back-to-back calls, host work included), and
    the kernel and its launches also on the device alone, with the wrapper's
-   host time per call;
+   host time per call; the counting kernel on phase 4's moving-averaged
+   probabilities, [64, 328] x 101 cutoffs, held bit for bit against the
+   plain loop on the CPU, then timed against the plain loop on the card
+   (events around back-to-back calls) and on the device alone with its
+   host time per call, beside its bound from its bytes;
 6. training at the flagship's full width: a synthetic ragged store from the
    seed (about 5.6 M training frames, positives with energy in the high
    channels, negatives in the low ones, positive-band bursts in two
@@ -202,7 +207,7 @@ from microwakeword_tpu_torch.data import host_stream, sampler
 from microwakeword_tpu_torch.data.ragged_store import RaggedSpectrogramStore
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.data.store import FeatureHandler
-from microwakeword_tpu_torch.evaluate import roc, streaming_eval
+from microwakeword_tpu_torch.evaluate import accepts_kernel, roc, streaming_eval
 from microwakeword_tpu_torch.export.torch_export import ExportedModel
 from microwakeword_tpu_torch.frontend import constants as FC
 from microwakeword_tpu_torch.frontend import fixedpoint, gate, kernel, plain, reference
@@ -1088,11 +1093,40 @@ def inception_state(seed: int) -> tuple:
     return bundle, convert.flax_to_state(variables)
 
 
+def accepts_phase(label: str, probs: torch.Tensor) -> dict:
+    """The counting kernel on the moving average of ``probs`` [streams,
+    steps] (the tracks that ``ambient_accept_counts`` counts) against the
+    plain loop: bit for bit against the loop on the CPU, then timed against
+    the loop on the card, on the device alone and beside its bound (its
+    bytes: the tracks in, the int64 counts out)."""
+    ma = roc.moving_average(probs, SLIDING_WINDOW)
+    args = (roc.DEFAULT_CUTOFFS, IGNORE_SLICES_AFTER_ACCEPT)
+    got = roc.count_accepts(ma, *args)
+    want = roc.count_accepts(ma.cpu(), *args)
+    check(torch.equal(got.cpu(), want), f"{label}: the counting kernel's counts differ from the "
+                                        f"plain loop's on the CPU at {list(ma.shape)}")
+    tm = dict(kernel=cuda_ms(lambda: roc.count_accepts(ma, *args), 20),
+              plain=cuda_ms(lambda: roc.count_accepts_plain(ma, *args), 3))
+    tm["device"], tm["host_us"] = queued_ms(lambda: roc.count_accepts(ma, *args), 50)
+    nbytes = ma.numel() * ma.element_size() + got.numel() * got.element_size()
+    tm["bound"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"{label} counting kernel {list(ma.shape)} x {len(roc.DEFAULT_CUTOFFS)} cutoffs, cooldown "
+          f"{IGNORE_SLICES_AFTER_ACCEPT}: equal to the CPU loop ({int(want.sum())} accepts); kernel "
+          f"{tm['kernel']:.4f} ms, plain loop on the card {tm['plain']:.4f} ms (both: events around "
+          f"back-to-back calls); kernel on the device alone {tm['device']:.4f} ms, wrapper host time "
+          f"{tm['host_us']:.1f} us per call; bound {tm['bound']:.5f} ms ({nbytes:,} bytes; "
+          f"roofline share {tm['bound'] / tm['device']:.4f} of the device time); library: none",
+          flush=True)
+    return tm
+
+
 def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.Tensor) -> dict:
     """Phase 11: Inception serving at full width: ``pcm`` -> the frontend
     kernel at 20 ms hops -> stream_scan at stride 1 -> accept counts; the
-    launch count is set to 0 before the path and read after it (exactly 3);
-    the streamed probabilities against the non-streaming forward; the whole
+    launch count is set to 0 before the path and read after it (exactly 3),
+    the counting kernel's likewise (exactly 1); the streamed probabilities
+    against the non-streaming forward; the counting kernel against the plain
+    loop at [64, 495] (``accepts_phase``); the whole
     path and its parts timed with CUDA events, and the scan's first
     SERVING_PROFILED_STEPS steps profiled."""
     bundle, state = inception_state(seed)
@@ -1105,6 +1139,7 @@ def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.T
             stride=bundle.stride, step_s=step_s)
 
     kernel.frontend_batch.launches = 0
+    accepts_kernel.count_accepts.launches = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
         feats = kernel.frontend_batch(pcm, step_ms=INCEPTION_STEP_MS)
@@ -1115,6 +1150,9 @@ def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.T
     launches = kernel.frontend_batch.launches
     check(launches == kernel.LAUNCHES_PER_CALL,
           f"Inception serving launched the frontend kernel {launches} times")
+    accept_launches = accepts_kernel.count_accepts.launches
+    check(accept_launches == 1,
+          f"Inception serving launched the counting kernel {accept_launches} times")
     frames = FC.num_frames(pcm.shape[1], FC.hop_samples(INCEPTION_STEP_MS))
     check(feats.shape == (pcm.shape[0], frames, FC.NUM_CHANNELS), f"features {tuple(feats.shape)}")
     check(probs.shape == (pcm.shape[0], frames, 1), f"probs {tuple(probs.shape)}")
@@ -1134,6 +1172,7 @@ def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.T
         accepts(bundle.stream_scan(model.module, f))
 
     with torch.inference_mode():
+        acc = accepts_phase("phase 11", probs[..., 0])
         frontend_ms = cuda_ms(lambda: kernel.frontend_batch(pcm, step_ms=INCEPTION_STEP_MS), 20)
         scan_ms = cuda_ms(lambda: bundle.stream_scan(model.module, feats), 1)
         accept_ms = cuda_ms(lambda: accepts(probs), 3)
@@ -1145,7 +1184,7 @@ def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.T
     print(f"phase 11 Inception serving: {pcm.shape[0]} streams x {pcm.shape[1] / FC.SAMPLE_RATE:.0f} "
           f"s at {INCEPTION_STEP_MS} ms hops, {frames} steps of 1 frame, {n_params:,} "
           f"parameters; wall {wall:.3f} s; frontend launches "
-          f"{launches}; probs in [{float(p.min()):.4f}, {float(p.max()):.4f}]; streamed vs forward "
+          f"{launches}, counting kernel launches {accept_launches}; probs in [{float(p.min()):.4f}, {float(p.max()):.4f}]; streamed vs forward "
           f"max|d|={worst:.3e}; accepts at 0.5/0.8/0.9: {counts[50]:.0f}/{counts[80]:.0f}/"
           f"{counts[90]:.0f} over {hours * 3600:.1f} s ({smi})")
     print(f"phase 11 path: frontend {frontend_ms:.3f} ms + stream_scan {scan_ms:.3f} ms + accept "
@@ -1157,7 +1196,7 @@ def phase_inception_serving(dev: torch.device, smi: str, seed: int, pcm: torch.T
     for key, ms, count in top:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key}")
     return dict(launches=launches, path_ms=path_ms, scan_ms=scan_ms, frontend_ms=frontend_ms,
-                max_abs=worst)
+                max_abs=worst, accept_launches=accept_launches, accepts=acc)
 
 
 def phase_inception_training(dev: torch.device, smi: str, seed: int, root: str,
@@ -2369,6 +2408,7 @@ def main() -> int:
     model = Model.from_torch(bundle, state)  # device=None: the card
     check(model.device.type == "cuda", "the model is not on the card")
     kernel.frontend_batch.launches = 0
+    accepts_kernel.count_accepts.launches = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
         feats = kernel.frontend_batch(pcm, step_ms=STEP_MS)
@@ -2381,6 +2421,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = kernel.frontend_batch.launches
     check(launches > 0, "the frontend kernel was not launched on the main path")
+    accept_launches = accepts_kernel.count_accepts.launches
+    check(accept_launches == 1, f"the main path launched the counting kernel {accept_launches} times")
     frames = FC.num_frames(pcm.shape[1], FC.hop_samples(STEP_MS))
     steps = frames // bundle.stride
     check(feats.shape == (STREAMS, frames, FC.NUM_CHANNELS), f"features {tuple(feats.shape)}")
@@ -2402,12 +2444,16 @@ def main() -> int:
     check(counts.shape == (len(roc.DEFAULT_CUTOFFS),) and hours > 0, "accept counts")
     print(f"phase 4 main path: {STREAMS} streams x {CLIP_S} s = {STREAMS * CLIP_S} audio-s, "
           f"{steps} steps of {bundle.stride} frames, wall {wall:.3f} s ({smi})")
-    print(f"phase 4 frontend launches: {launches}; probs in [{float(p.min()):.4f}, {float(p.max()):.4f}]; "
+    print(f"phase 4 frontend launches: {launches}; counting kernel launches: {accept_launches}; "
+          f"probs in [{float(p.min()):.4f}, {float(p.max()):.4f}]; "
           f"streamed vs forward max|d|={worst:.3e}; predict_clip max|d|={clip_err:.3e}")
     print(f"phase 4 accepts at cutoffs 0.5/0.8/0.9: {counts[50]:.0f}/{counts[80]:.0f}/"
           f"{counts[90]:.0f} over {hours * 3600:.1f} s", flush=True)
 
-    # 5. times: the kernel at four shapes, whole and launch by launch
+    # 5. times: the counting kernel; the frontend kernel at four shapes,
+    # whole and launch by launch
+    with torch.inference_mode():
+        accepts = accepts_phase("phase 5", probs[..., 0])
     long_np = rng.integers(-20000, 20000, LONG_CLIPS).astype(np.int16)
     shapes = [("serving", pcm, STEP_MS), ("training window", torch.from_numpy(train_np).to(dev), 10),
               ("serving 20ms", pcm, 20), ("long clips", torch.from_numpy(long_np).to(dev), 10)]
@@ -2567,6 +2613,17 @@ def main() -> int:
                                     "gloo_two_ranks": refresh2["chunk_ms"]},
         host_frontend_ms_per_audio_s={f"{n} {w}": v for (n, w), v in
                                       host_frontends["ms_per_audio_s"].items()},
+    ), dict(
+        name="accepts", route="cuda", source="microwakeword_tpu_torch/csrc/accepts.cu",
+        replaces="microwakeword_tpu/evaluate/roc.py:31", launches=accept_launches,
+        mismatches=0, ms=accepts["kernel"], plain_ms=accepts["plain"], bound_ms=accepts["bound"],
+        bound_by="bytes", library_ms=None, ms_device=accepts["device"],
+        host_us_per_call=accepts["host_us"],
+        launches_inception_serving=inception_serving["accept_launches"],
+        ms_inception=inception_serving["accepts"]["kernel"],
+        plain_ms_inception=inception_serving["accepts"]["plain"],
+        ms_device_inception=inception_serving["accepts"]["device"],
+        bound_ms_inception=inception_serving["accepts"]["bound"],
     )]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

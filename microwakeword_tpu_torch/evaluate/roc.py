@@ -2,7 +2,8 @@
 
 The counting functions take tensors (or arrays) on any device and run there;
 ``count_accepts`` is vectorised over cutoffs and over any leading batch of
-tracks, with a loop over time for the cooldown.  ``generate_roc_curve`` and
+tracks: on a CUDA tensor one kernel (``evaluate/accepts_kernel.py``), on the
+CPU a loop over time for the cooldown.  ``generate_roc_curve`` and
 ``roc_auc`` are NumPy, as in the JAX package.
 """
 
@@ -12,6 +13,8 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from microwakeword_tpu_torch.evaluate import accepts_kernel
 
 DEFAULT_CUTOFFS = np.arange(0, 1.01, 0.01)
 
@@ -42,10 +45,24 @@ def moving_average(probs, window: int = 5) -> torch.Tensor:
 def count_accepts(probs, cutoffs, ignore_slices_after_accept: int) -> torch.Tensor:
     """Per-cutoff accept counts with a refractory cooldown (roc.py:30-62).
 
-    probs [..., T] -> int64 counts [..., len(cutoffs)].  Per probability the
-    cooldown decrements (min 0); an accept fires when the cooldown is 0 and
-    prob > cutoff, and resets the cooldown to ``ignore_slices_after_accept``.
+    probs [..., T] -> int64 counts [..., len(cutoffs)], the cutoffs one axis
+    (at most 512 of them on a CUDA tensor).  Per probability the cooldown
+    decrements (min 0); an accept fires when the cooldown is 0 and prob >
+    cutoff, and resets the cooldown to ``ignore_slices_after_accept``.  A
+    CUDA tensor takes the kernel (``accepts_kernel.count_accepts``: one
+    launch, no host sync); anything else ``count_accepts_plain``.
     """
+    cut = np.asarray(cutoffs, np.float32)
+    if cut.ndim != 1:
+        raise ValueError(f"cutoffs must be one axis, got shape {cut.shape}")
+    if isinstance(probs, torch.Tensor) and probs.device.type == "cuda":
+        return accepts_kernel.count_accepts(probs, cut, ignore_slices_after_accept)
+    return count_accepts_plain(probs, cut, ignore_slices_after_accept)
+
+
+def count_accepts_plain(probs, cutoffs, ignore_slices_after_accept: int) -> torch.Tensor:
+    """``count_accepts`` as a loop over time on any device, the plain version
+    that the kernel is held against."""
     p = _as_tensor(probs, torch.float32)
     cut = torch.as_tensor(np.asarray(cutoffs, np.float32), device=p.device)
     reset = int(ignore_slices_after_accept)

@@ -36,7 +36,10 @@ Spans, by layer:
   graph for its key holds one ``stream.capture`` before its steps (warm-up
   steps and the capture);
 - accept counting (``evaluate/streaming_eval.py``): ``accept.counts``, one
-  call of ``ambient_accept_counts``, the counts brought to the host;
+  call of ``ambient_accept_counts``, the counts brought to the host; on a
+  CUDA device each ``roc.count_accepts`` inside it holds one
+  ``accept.kernel``, the counting kernel's launch
+  (``evaluate/accepts_kernel.py``), which the CPU's loop never opens;
 - inference entry (``inference.py`` ``Model``): ``predict.clip``, one
   ``predict_clip`` request, holding ``predict.copy_in`` (the PCM to int16
   and onto the device), ``frontend.batch``, and for ``from_torch`` models

@@ -175,6 +175,13 @@ def test_scan_covers_the_host_frontends():
         assert f"microwakeword_tpu_torch/{name}" in scanned, name
 
 
+def test_scan_covers_the_accept_kernel():
+    """The scan below reaches accept counting and its kernel's wrapper."""
+    scanned = {str(p.relative_to(REPO)) for p in _sources()}
+    for name in ("evaluate/roc.py", "evaluate/accepts_kernel.py", "evaluate/streaming_eval.py"):
+        assert f"microwakeword_tpu_torch/{name}" in scanned, name
+
+
 @pytest.mark.parametrize("path", list(_sources()), ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -10,7 +10,8 @@ from microwakeword_tpu.evaluate import roc as jroc
 from microwakeword_tpu.evaluate import streaming_eval as jeval
 from microwakeword_tpu.models import build_model as jax_build_model
 from microwakeword_tpu.models.mixednet import MixedNetConfig as JaxConfig
-from microwakeword_tpu_torch.evaluate import roc, streaming_eval
+from microwakeword_tpu_torch import _build
+from microwakeword_tpu_torch.evaluate import accepts_kernel, roc, streaming_eval
 from microwakeword_tpu_torch.models import MixedNetConfig, build_model, convert
 
 torch.set_num_threads(2)
@@ -42,6 +43,74 @@ def test_count_accepts_batched_equals_per_track():
     assert got.shape == (len(tracks), len(roc.DEFAULT_CUTOFFS))
     for row, track in zip(got.numpy(), tracks):
         np.testing.assert_array_equal(row, jroc.count_accepts(track, jroc.DEFAULT_CUTOFFS, 5))
+
+
+def test_count_accepts_on_cpu_is_the_loop(monkeypatch):
+    """A CPU tensor builds and loads no library, launches nothing and opens
+    no ``accept.kernel`` span; its counts are the JAX package's."""
+
+    def refuse(*args):
+        raise AssertionError("a CPU tensor reached the kernel's library")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(accepts_kernel, "_library", refuse)
+    launches = accepts_kernel.count_accepts.launches
+    tracks = np.stack([t[:40] for t in _tracks(12)])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = roc.count_accepts(torch.from_numpy(tracks), roc.DEFAULT_CUTOFFS, 7)
+        counts, _ = streaming_eval.ambient_accept_counts(
+            [torch.from_numpy(tracks)], roc.DEFAULT_CUTOFFS, 7, 5, 3)
+    names = {e.name for e in prof.events()}
+    assert "accept.counts" in names and "accept.kernel" not in names
+    assert accepts_kernel.count_accepts.launches == launches
+    for row, track in zip(got.numpy(), tracks):
+        np.testing.assert_array_equal(row, jroc.count_accepts(track, jroc.DEFAULT_CUTOFFS, 7))
+    want, _ = jeval.ambient_accept_counts(list(tracks), jroc.DEFAULT_CUTOFFS, 7, 5, 3)
+    np.testing.assert_array_equal(counts, want)
+
+
+def test_kernel_wrapper_refuses_a_cpu_tensor():
+    with pytest.raises(ValueError, match="device cpu"):
+        accepts_kernel.count_accepts(torch.zeros(3, 10), roc.DEFAULT_CUTOFFS, 5)
+
+
+def _card_kind(kind: str, shape, seed: int) -> np.ndarray:
+    """The data of the kernel's card tests: saturated probabilities (exact 0s
+    and 1s, a few values between) or ties (each frame a float32 cutoff or
+    one of its neighbours).  The ties leave out cutoff 0, whose neighbours
+    are subnormal: XLA on the CPU flushes them to 0, the port does not."""
+    rng = np.random.default_rng(seed)
+    if kind == "saturated":
+        p = (rng.uniform(size=shape) < 0.3).astype(np.float32)
+        between = rng.uniform(size=shape) < 0.02
+        p[between] = rng.uniform(0.0, 1.0, int(between.sum()))
+        return p
+    cut = roc.DEFAULT_CUTOFFS.astype(np.float32)[rng.integers(1, len(roc.DEFAULT_CUTOFFS), shape)]
+    step = rng.integers(-1, 2, shape)
+    out = np.where(step > 0, np.nextafter(cut, np.float32(2)), cut)
+    return np.where(step < 0, np.nextafter(cut, np.float32(-1)), out).astype(np.float32)
+
+
+@pytest.mark.parametrize("reset", [0, 1, 25, 75])
+@pytest.mark.parametrize("kind", ["saturated", "ties"])
+def test_count_accepts_plain_on_the_card_tests_data(kind, reset):
+    """The loop that the kernel is held against on the card counts as the
+    JAX package does on the card tests' data, per track of an [A, B, T]
+    tensor; a tie (p == cut) does not fire."""
+    probs = _card_kind(kind, (3, 2, 120), seed=reset)
+    got = roc.count_accepts(torch.from_numpy(probs), roc.DEFAULT_CUTOFFS, reset)
+    assert got.shape == (3, 2, len(roc.DEFAULT_CUTOFFS))
+    for row, track in zip(got.reshape(6, -1).numpy(), probs.reshape(6, -1)):
+        np.testing.assert_array_equal(row, jroc.count_accepts(track, jroc.DEFAULT_CUTOFFS, reset))
+    assert torch.equal(got, roc.count_accepts_plain(torch.from_numpy(probs), roc.DEFAULT_CUTOFFS,
+                                                    reset))
+
+
+@pytest.mark.parametrize("cutoffs", [0.5, [[0.2, 0.5], [0.7, 0.9]]], ids=["scalar", "two_axes"])
+def test_count_accepts_takes_one_axis_of_cutoffs(cutoffs):
+    """On every device: the kernel's one axis of cutoffs is the loop's too."""
+    with pytest.raises(ValueError, match="one axis"):
+        roc.count_accepts(torch.zeros(3, 10), cutoffs, 5)
 
 
 @pytest.mark.parametrize("refractory", [0, 3, 50])

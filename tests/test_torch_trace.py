@@ -10,7 +10,8 @@ CPU profiler, and the train loop's ``steps_per_sec``.
 - ``stream_scan`` yields one ``stream.step`` per step inside ``stream.scan``;
   ``predict_clip`` yields ``predict.clip`` holding ``predict.copy_in``,
   ``frontend.batch``, ``stream.scan`` and ``predict.copy_out`` in order;
-  ``ambient_accept_counts`` yields one ``accept.counts``;
+  ``ambient_accept_counts`` yields one ``accept.counts`` (and on the CPU
+  no ``accept.kernel``);
 - spans change no number: losses, parameters, streamed probabilities and
   accept counts are bitwise equal with the profiler on and off;
 - ``steps_per_sec`` counts steps done: with one eval at the end it is the
@@ -41,7 +42,7 @@ torch.set_num_threads(2)
 
 SPANS = {"train.step", "train.sample", "train.forward", "train.backward", "train.adam",
          "train.report", "frontend.batch", "stream.scan", "stream.step", "accept.counts",
-         "predict.clip", "predict.copy_in", "predict.copy_out", "refresh.swap"}
+         "accept.kernel", "predict.clip", "predict.copy_in", "predict.copy_out", "refresh.swap"}
 L, B, STRIDE = 25, 8, 3
 CFG = dict(pointwise_filters=(8, 8), repeat_in_block=(1, 1), mixconv_kernel_sizes=((3,), (5,)),
            residual_connection=(False, False), first_conv_filters=8, first_conv_kernel_size=3,
