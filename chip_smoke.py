@@ -24,7 +24,8 @@ printing its own lines; any failure exits non-zero:
    held against the non-streaming forward pass;
 5. times: the kernel (whole and each launch on its own), its plain version,
    a cuFFT yardstick of the filterbank stage and the whole path, with CUDA
-   events after a warm-up, beside the kernel's bound on this card, at the
+   events after a warm-up, beside the kernel's bound on this card (the
+   benchmark's counts, benchmark/counts/frontend.py and peaks.py), at the
    serving shape, the flagship's raw-audio training window, serving at
    20 ms and 8 clips of 10 minutes; the kernel and its plain version are
    timed alike (events around back-to-back calls, host work included), and
@@ -194,6 +195,8 @@ import numpy as np
 import torch
 from scipy.signal import resample_poly
 
+from benchmark.counts import frontend as frontend_counts
+from benchmark.counts.peaks import PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
 from microwakeword_tpu_torch import _build, build_dataset, native, sweep
 from microwakeword_tpu_torch import model_train_eval as CLI
 from microwakeword_tpu_torch.audio import io as audio_io
@@ -234,17 +237,6 @@ CLIP_ATOL = 1e-5  # one stream alone vs the same stream in the batch
 TRAIN_WINDOW = (128, 32960)
 # Whole clips as the dataset builder passes them: 8 of 10 minutes, 1,875 tiles.
 LONG_CLIPS = (8, 600 * FC.SAMPLE_RATE)
-
-# Published H100 SXM peaks (dense): FP32 on the CUDA cores, HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-
-# The __global__ functions of csrc/frontend.cu: launches A, S and B.
-FRONTEND_KERNELS = ("filterbank_kernel", "carry_scan_kernel", "ema_agc_kernel")
-
-# FP32 operations per feature cell after the mel product: sqrt and / 8 (2),
-# the EMA (3) and plain._agc_output's elementwise operations (24).
-CELL_FLOPS = 2 + 3 + 24
 
 # Phase 6: the synthetic store, (clips, least frames, most frames) per split.
 STORE = {
@@ -354,7 +346,7 @@ def device_profile(fn):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in kernels[:5]]
     frontend_ms = sum(e.self_device_time_total for e in kernels
-                      if any(k in e.key for k in FRONTEND_KERNELS)) / 1e3
+                      if any(k in e.key for k in frontend_counts.KERNELS)) / 1e3
     return wall_ms, device_ms, top, sum(e.count for e in kernels), frontend_ms
 
 
@@ -625,8 +617,8 @@ def step_breakdown(step, phase: dict, calls: int = 20) -> dict:
     bundle, model = step.bundle, step.model
     feats, labels, pen = sampler.sample_batch(step.packed, step.generator, step.batch_size,
                                               step.features_length, **masks)
-    weights = pen * torch.where(labels > 0.5, opt["positive_class_weight"],
-                                opt["negative_class_weight"])
+    weights = training.loss_weights(pen, labels, opt["positive_class_weight"],
+                                    opt["negative_class_weight"])
 
     def loss():
         return training.weighted_bce(bundle.forward_train(model, feats), labels, weights)
@@ -2267,35 +2259,6 @@ def flagship_state(seed: int) -> tuple:
     return bundle, convert.flax_to_state(variables)
 
 
-def frontend_flops_per_hop() -> float:
-    """The least FP32 operations per hop of the micro-frontend's function.
-
-    The window (480 multiplies); the 512-point real FFT as a packed
-    256-point complex split-radix FFT (4 M log2 M - 6 M + 8 operations,
-    M = 256) and its split step to 257 bins (14 for each pair of bins k,
-    256 - k with 0 < k < 128, the halvings folded into the twiddles, and 2
-    for bins 0 and 256); the energy of 257 bins (3 each); the mel filters'
-    nonzero taps (2 each: every bin feeds at most 2 channels); and
-    CELL_FLOPS per feature cell.  That is 11,767, less than the kernel does
-    (csrc/frontend.cu counts its own), as a bound must be.
-    """
-    m = FC.FFT_SIZE // 2
-    fft = 4 * m * np.log2(m) - 6 * m + 8 + 14 * (m // 2 - 1) + 2
-    mel_taps = np.count_nonzero(FC.mel_filterbank_matrix())
-    return float(FC.WINDOW_SAMPLES + fft + 3 * FC.N_FFT_BINS + 2 * mel_taps
-                 + CELL_FLOPS * FC.NUM_CHANNELS)
-
-
-def frontend_bound_ms(batch: int, samples: int, frames: int, audio_bytes: int):
-    """Least time for the micro-frontend's function on this card: the larger
-    of its FP32 operations (``frontend_flops_per_hop``) over the FP32 peak
-    and its bytes (PCM in once, features out once) over the memory rate."""
-    flops = batch * frames * frontend_flops_per_hop()
-    nbytes = batch * samples * audio_bytes + batch * frames * FC.NUM_CHANNELS * 4
-    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
 def cufft_filterbank(audio: torch.Tensor, step_ms: int, window: torch.Tensor) -> torch.Tensor:
     """The filterbank stage through cuFFT, a yardstick timed here and used
     nowhere in the package: Hann-windowed frames, rfft zero-padded to 512,
@@ -2480,7 +2443,9 @@ def main() -> int:
             want = plain.scaled_filterbank(plain.frame_audio(x.to(torch.float32), step))
             yard_err = float((cufft_filterbank(x, step, window) - want).abs().max() / want.abs().max())
             del want
-            tm["bound"], tm["bound_by"] = frontend_bound_ms(x.shape[0], x.shape[1], nf, x.element_size())
+            flops, nbytes = frontend_counts.work(x.shape[0], x.shape[1], step, x.element_size())
+            tm["bound"], tm["bound_by"] = max((flops / PEAK_FP32_FLOPS * 1e3, "operations"),
+                                              (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
             times[label] = tm
             print(f"phase 5 frontend {label} {list(x.shape)} int16 at {step} ms, T={nf}: kernel "
                   f"{tm['kernel']:.4f} ms, plain {tm['plain']:.4f} ms (both: events around 20 "

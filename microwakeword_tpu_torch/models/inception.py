@@ -145,11 +145,20 @@ class Inception(L.StreamingModel):
             x = self._dropout(x, dropout)
         return torch.sigmoid(self.Dense_0(x))
 
+    def keep_mask(self, rows: int, generator: torch.Generator) -> torch.Tensor | None:
+        """[rows, tail * C]: the dropout acts on the flattened tail that
+        feeds ``Dense_0``."""
+        if self.cfg.dropout <= 0:
+            return None
+        weight = self.Dense_0.weight
+        return draw_keep_mask((rows, weight.shape[1]), 1.0 - self.cfg.dropout, generator,
+                              weight.device)
+
     def _dropout(self, x: torch.Tensor, dropout) -> torch.Tensor:
         """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)``."""
         keep_prob = 1.0 - self.cfg.dropout
         if isinstance(dropout, torch.Generator):
-            mask = draw_keep_mask(x.shape, keep_prob, dropout, x.device)
+            mask = self.keep_mask(x.shape[0], dropout)
         elif isinstance(dropout, torch.Tensor):
             mask = dropout.to(device=x.device, dtype=torch.bool).reshape(x.shape)
         else:

@@ -76,6 +76,11 @@ class StreamingModel(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    def keep_mask(self, rows: int, generator: torch.Generator) -> torch.Tensor | None:
+        """The keep mask of the model's dropout for ``rows`` rows, drawn from
+        ``generator`` as its train-mode forward draws it; None: no dropout."""
+        return None
+
     def step(self, x: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
         """Newest [B, stride, 40] slices -> ([B, 1] probs, new cache)."""
         new_cache = {}

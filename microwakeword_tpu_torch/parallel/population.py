@@ -11,19 +11,19 @@ under ``torch.func.vmap`` over ``torch.func.functional_call``: vmap's
 batching rules fold the member axis into the batch or channel axes of each
 operator (a conv of N members is one grouped conv), so each launch serves
 every member.  Per-member Adam runs on the [N, P] vectors with a learning
-rate per member, in ``TrainStep._adam``'s arithmetic and order.
+rate per member, through the solo step's ``train.loop.adam``.
 
 Batches: with ``share_batch=True`` one batch per step, drawn from member 0's
 generator, serves every member (one gather for the population; member 0
 follows its solo run).  With ``share_batch=False`` each member draws its own
 batch from its own generator; the draws are per member (a few small launches
 each), the window placement, gather, scaling and SpecAugment run once over
-all N * B rows, and every member follows its own solo trajectory.  Dropout
-keep masks (Inception) are drawn from each member's generator in either mode,
-after its batch and SpecAugment draws (a solo ``TrainStep``'s order), and
-passed to the model as its keep mask.  The JAX package's private path asks
-for its wide-row gather, a TPU layout with the same features; the port has
-one gather.
+all N * B rows, and every member follows its own solo trajectory.  The
+model's keep masks (Inception's ``keep_mask``) are drawn from each member's
+generator in either mode, after its batch and SpecAugment draws (a solo
+``TrainStep``'s order), and passed to the model.  The JAX package's private
+path asks for its wide-row gather, a TPU layout with the same features; the
+port has one gather.
 
 Generators: member i draws from a device generator seeded by
 ``member_seed(sample_seed, seeds[i])``, and its weights come from
@@ -47,15 +47,13 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from microwakeword_tpu_torch.data import sampler as S
 from microwakeword_tpu_torch.device import resolve_device
-from microwakeword_tpu_torch.models.inception import draw_keep_mask
+from microwakeword_tpu_torch.parallel.train_step import shard_seed
 from microwakeword_tpu_torch.train import metrics as M
-from microwakeword_tpu_torch.train.loop import ADAM_B1, ADAM_B2, ADAM_EPS, weighted_bce
+from microwakeword_tpu_torch.train.loop import adam, flat_layout, loss_weights, weighted_bce
 
-
-def member_seed(sample_seed: int, seed: int) -> int:
-    """The seed of a member's device generator: ``sample_seed`` in the high
-    32 bits, the member's ``seed`` in the low 32."""
-    return ((int(sample_seed) & 0xFFFFFFFF) << 32) | (int(seed) & 0xFFFFFFFF)
+# the seed of a member's device generator: ``sample_seed`` in the high 32
+# bits, the member's ``seed`` in the low 32
+member_seed = shard_seed
 
 
 def init_population(bundle, seeds, device=None) -> dict:
@@ -116,23 +114,10 @@ class PopulationTrainStep:
         self.model = bundle.build().to(self.device)
         params, buffers = _split_state(self.model, stacked)
         self.param_names = list(params)
-        with torch.no_grad():
-            self.flat = torch.cat([v.detach().reshape(self.n, -1) for v in params.values()], dim=1)
-            self.params, offset = {}, 0
-            for k, v in params.items():
-                size = v[0].numel()
-                self.params[k] = self.flat[:, offset : offset + size].view(v.shape)
-                offset += size
-            self.buffers = {k: v.detach().clone() for k, v in buffers.items()}
-        self.grad = torch.zeros_like(self.flat)
-        self.mu = torch.zeros_like(self.flat)
-        self.nu = torch.zeros_like(self.flat)
-        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
-        dropout = float(getattr(bundle.config, "dropout", 0.0) or 0.0)
-        # Inception's dropout acts on the flattened tail that feeds Dense_0
-        self.keep_prob = 1.0 - dropout if dropout > 0 else None
-        self.dropout_width = (self.model.Dense_0.weight.shape[1]
-                              if self.keep_prob is not None else 0)
+        self.flat, views, self.grad, self.mu, self.nu, self.count = flat_layout(
+            list(params.values()), (self.n,))
+        self.params = dict(zip(self.param_names, views))
+        self.buffers = {k: v.detach().clone() for k, v in buffers.items()}
         grad_fn = grad_and_value(self._loss, has_aux=True)
         # in_dims of (params, buffers, feats, labels, penalties, pos_w, neg_w,
         # keep mask) by (private batch, keep mask)
@@ -148,30 +133,17 @@ class PopulationTrainStep:
 
     # ---- one sub-step ---------------------------------------------------
     def _loss(self, params, buffers, feats, labels, penalties, pos_w, neg_w, keep):
-        weights = penalties * torch.where(labels > 0.5, pos_w, neg_w)
+        weights = loss_weights(penalties, labels, pos_w, neg_w)
         probs = functional_call(self.model, (params, buffers), (feats.to(self.flat.dtype), keep))
         return weighted_bce(probs, labels, weights), probs
 
-    def _adam(self, neg_lr: torch.Tensor) -> None:
-        """TrainStep._adam on [N, P], ``neg_lr`` [N, 1] the members' -lr."""
-        g = self.grad
-        self.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-        self.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-        self.count.add_(1)
-        count = self.count.to(self.flat.dtype)
-        mu_hat = self.mu / (1.0 - torch.pow(ADAM_B1, count))
-        denom = torch.sqrt(self.nu / (1.0 - torch.pow(ADAM_B2, count))).add_(ADAM_EPS)
-        self.flat.add_(mu_hat.div_(denom).mul_(neg_lr))
-
     def _keep_masks(self) -> torch.Tensor | None:
-        """[N, B, D] keep masks, one draw from each member's generator."""
-        if self.keep_prob is None:
-            return None
-        shape = (self.batch_size, self.dropout_width)
+        """[N, B, D] keep masks, one draw from each member's generator; None
+        where the model draws none."""
         if self.lead is not self.generators[0]:
-            draw_keep_mask(shape, self.keep_prob, self.lead, self.device)
-        return torch.stack([draw_keep_mask(shape, self.keep_prob, g, self.device)
-                            for g in self.generators])
+            self.model.keep_mask(self.batch_size, self.lead)
+        keep = [self.model.keep_mask(self.batch_size, g) for g in self.generators]
+        return None if keep[0] is None else torch.stack(keep)
 
     def _sample(self, masks: dict):
         """One population batch: (feats, labels, penalties, keep masks), the
@@ -186,9 +158,7 @@ class PopulationTrainStep:
             u_win.append(S.window_uniforms(self.packed, g, b))
             if m:
                 u_aug.append(torch.rand((b, 2 * m), generator=g, device=self.device))
-            if self.keep_prob is not None:
-                keep.append(draw_keep_mask((b, self.dropout_width), self.keep_prob, g,
-                                           self.device))
+            keep.append(self.model.keep_mask(b, g))
         off, n, start, labels, pens = S.windows_from_uniforms(self.packed, torch.cat(u_win),
                                                               length)
         windows, valid = S.gather_windows(self.packed.frames, off, n, start, length)
@@ -197,7 +167,7 @@ class PopulationTrainStep:
             u = torch.cat(u_aug)
             feats = S.spec_augment_from_uniforms(feats, u[:, :m], u[:, m:], **masks)
         return (feats.reshape((self.n, b) + feats.shape[1:]), labels.reshape(self.n, b),
-                pens.reshape(self.n, b), torch.stack(keep) if keep else None)
+                pens.reshape(self.n, b), None if keep[0] is None else torch.stack(keep))
 
     def _sub_step(self, feats, labels, pens, keep, neg_lr, pos_w, neg_w):
         fn = self._grad_fns[(0 if feats.dim() == 4 else None, None if keep is None else 0)]
@@ -209,7 +179,7 @@ class PopulationTrainStep:
             self.model.eval()
         torch.cat([grads[k].reshape(self.n, -1) for k in self.param_names], dim=1, out=self.grad)
         with torch.no_grad():
-            self._adam(neg_lr)
+            adam(self.flat, self.grad, self.mu, self.nu, self.count, neg_lr)
         return probs.detach(), labels, loss.detach()
 
     def _report(self, last) -> dict:
@@ -242,8 +212,8 @@ class PopulationTrainStep:
                          negative_class_weights, keep=None) -> dict:
         """One sub-step on given features: [B, L, F] shared by every member
         or [N, B, L, F] per member (labels and penalties [B] or [N, B]);
-        ``keep`` the [N, B, D] dropout keep masks where the model has a
-        dropout."""
+        ``keep`` the [N, B, D] keep masks where the model draws them
+        (``_keep_masks``)."""
         hyper = self._hyper(learning_rates, positive_class_weights, negative_class_weights)
         return self._report(self._sub_step(feats, labels, penalties, keep, *hyper))
 

@@ -44,7 +44,8 @@ from microwakeword_tpu_torch.train.loop import TrainStep
 
 def shard_seed(seed: int, rank: int) -> int:
     """The generator seed of a rank's draws from a sharded corpus: ``seed``
-    in the high 32 bits, the rank in the low 32."""
+    in the high 32 bits, the rank in the low 32 (and of a population
+    member's draws, ``population.member_seed``)."""
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(rank) & 0xFFFFFFFF)
 
 

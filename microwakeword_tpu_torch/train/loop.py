@@ -31,6 +31,7 @@ checkpoints to migrate and is left out.  When ``tensorboardX`` imports, rank
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 
@@ -45,7 +46,6 @@ from microwakeword_tpu_torch.data.host_stream import (
 )
 from microwakeword_tpu_torch.data.refresh import PoolRefresher
 from microwakeword_tpu_torch.device import resolve_device
-from microwakeword_tpu_torch.models.inception import draw_keep_mask
 from microwakeword_tpu_torch.models.layers import BatchNorm
 from microwakeword_tpu_torch.trace import span
 from microwakeword_tpu_torch.train import metrics as M
@@ -54,6 +54,43 @@ EPS = 1e-7  # Keras BinaryCrossentropy epsilon
 # optax.adam as the JAX package configures it: Keras' epsilon, outside the
 # square root; eps_root 0.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
+
+
+def adam(flat, grad, mu, nu, count, neg_lr) -> None:
+    """optax's ``scale_by_adam`` and the step, in its arithmetic and order,
+    on a flat vector in place: moments ``(1 - b) * g + b * m``, bias
+    correction by ``1 - b ** count``, ``m_hat / (sqrt(v_hat) + eps)``, times
+    ``neg_lr`` (-lr: a float for one model, [N, 1] for a population)."""
+    mu.mul_(ADAM_B1).add_(grad, alpha=1.0 - ADAM_B1)
+    nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1.0 - ADAM_B2)
+    count.add_(1)
+    c = count.to(flat.dtype)
+    # true division by 0-dim device tensors, as JAX divides (a Python
+    # scalar divisor becomes a reciprocal multiply on the card)
+    mu_hat = mu / (1.0 - torch.pow(ADAM_B1, c))
+    denom = torch.sqrt(nu / (1.0 - torch.pow(ADAM_B2, c))).add_(ADAM_EPS)
+    flat.add_(mu_hat.div_(denom).mul_(neg_lr))
+
+
+def flat_layout(tensors, lead: tuple = ()):
+    """``tensors`` (each [*lead, *shape]: ``lead`` is () for one model, (N,)
+    for a population) copied into one flat vector [*lead, P]; returns (flat,
+    a view of it in each tensor's shape, and Adam's zero state beside it:
+    grad, mu, nu like flat and an int32 count)."""
+    with torch.no_grad():
+        flat = torch.cat([t.detach().reshape(*lead, -1) for t in tensors], dim=len(lead))
+    views, offset = [], 0
+    for t in tensors:
+        size = math.prod(t.shape[len(lead):])
+        views.append(flat[..., offset : offset + size].view(t.shape))
+        offset += size
+    count = torch.zeros((), dtype=torch.int32, device=flat.device)
+    return flat, views, torch.zeros_like(flat), torch.zeros_like(flat), torch.zeros_like(flat), count
+
+
+def loss_weights(penalties, labels, positive_class_weight, negative_class_weight):
+    """Each row's loss weight: its penalty times its class's weight."""
+    return penalties * torch.where(labels > 0.5, positive_class_weight, negative_class_weight)
 
 
 def pad_schedule(values, n):
@@ -110,17 +147,15 @@ class TrainStep:
     The module's parameters become views into one flat vector (fp32 in
     training; a float64 module gives a float64 step, as the card-against-CPU
     check uses it), and their gradients are gathered into one flat vector,
-    so Adam is a handful of vector ops.  Adam follows optax's ``scale_by_adam`` arithmetic and
-    order: moments ``(1 - b) * g + b * m``, bias correction by
-    ``1 - b ** count``, ``m_hat / (sqrt(v_hat) + eps)``, times ``-lr``.
-    The BatchNorm statistics update in the module's buffers.
+    so Adam (``adam``) is a handful of vector ops.  The BatchNorm statistics
+    update in the module's buffers.
 
     ``step(**phase)`` draws the batch from the corpus with ``generator``
     (``sampler.sample_any``: spectrograms, raw audio through the frontend
-    kernel, or both), and the model's dropout keep mask, where it has a
-    dropout (Inception), from the same generator; ``step_on_batch`` takes a
-    gathered batch of spectrogram windows instead (the host-streamed form,
-    ``data/host_stream.py``), with a leading [steps] axis for several
+    kernel, or both), and the model's keep mask, where it has one
+    (Inception's ``keep_mask``), from the same generator; ``step_on_batch``
+    takes a gathered batch of spectrogram windows instead (the host-streamed
+    form, ``data/host_stream.py``), with a leading [steps] axis for several
     sub-steps.
     Either reports the last sub-step's metrics (0-dim tensors).  Under a
     torch profiler each sub-step is a ``train.step`` span holding
@@ -146,16 +181,9 @@ class TrainStep:
         self.generator = generator
         self.params = list(model.parameters())
         self.device = self.params[0].device
-        with torch.no_grad():
-            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
-            offset = 0
-            for p in self.params:
-                p.data = self.flat[offset : offset + p.numel()].view_as(p)
-                offset += p.numel()
-        self.grad = torch.zeros_like(self.flat)
-        self.mu = torch.zeros_like(self.flat)
-        self.nu = torch.zeros_like(self.flat)
-        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.flat, views, self.grad, self.mu, self.nu, self.count = flat_layout(self.params)
+        for p, view in zip(self.params, views):
+            p.data = view
         self.mesh = mesh
         self.sharded = bool(sharded)
         # this rank's block of the global batch (None: all of it) and its
@@ -165,7 +193,6 @@ class TrainStep:
         self.local_batch = self.batch_size // (1 if mesh is None else mesh.size)
         self.share = self.local_batch / self.batch_size
         self.batch_norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
-        self.keep_prob = None
         if mesh is not None:
             with torch.no_grad():
                 mesh.broadcast(self.flat)
@@ -173,9 +200,6 @@ class TrainStep:
                     mesh.broadcast(buf)
             for bn in self.batch_norms:
                 bn.stats_reduce = self._reduce_stats
-            dropout = float(getattr(bundle.config, "dropout", 0.0) or 0.0)
-            # Inception's dropout acts on the flattened tail that feeds Dense_0
-            self.keep_prob = 1.0 - dropout if dropout > 0 else None
 
     # ---- optimizer state ----------------------------------------------
     def opt_state(self) -> dict:
@@ -188,16 +212,7 @@ class TrainStep:
 
     # ---- one sub-step ---------------------------------------------------
     def _adam(self, learning_rate: float) -> None:
-        g = self.grad
-        self.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-        self.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-        self.count.add_(1)
-        count = self.count.to(self.flat.dtype)
-        # true division by 0-dim device tensors, as JAX divides (a Python
-        # scalar divisor becomes a reciprocal multiply on the card)
-        mu_hat = self.mu / (1.0 - torch.pow(ADAM_B1, count))
-        denom = torch.sqrt(self.nu / (1.0 - torch.pow(ADAM_B2, count))).add_(ADAM_EPS)
-        self.flat.add_(mu_hat.div_(denom).mul_(-learning_rate))
+        adam(self.flat, self.grad, self.mu, self.nu, self.count, -learning_rate)
 
     def _reduce_stats(self, mean: torch.Tensor, mean_sq: torch.Tensor):
         """BatchNorm's hook over a mesh: this rank's E[x] and E[x^2] times its
@@ -206,23 +221,20 @@ class TrainStep:
         return both[: mean.shape[0]], both[mean.shape[0] :]
 
     def _keep_mask(self) -> torch.Tensor | None:
-        """Over a mesh, this rank's rows of the dropout keep mask, drawn after
+        """Over a mesh, this rank's rows of the model's keep mask, drawn after
         the batch as the solo step's forward draws it; None where the forward
-        draws its own (no mesh) or has no dropout."""
-        if self.keep_prob is None:
+        draws its own (no mesh) or the model draws none."""
+        if self.mesh is None:
             return None
-        width = self.model.Dense_0.weight.shape[1]
         if self.sharded:
-            return draw_keep_mask((self.local_batch, width), self.keep_prob, self.generator,
-                                  self.device)
-        return draw_keep_mask((self.batch_size, width), self.keep_prob, self.generator,
-                              self.device)[self.rows]
+            return self.model.keep_mask(self.local_batch, self.generator)
+        keep = self.model.keep_mask(self.batch_size, self.generator)
+        return None if keep is None else keep[self.rows]
 
     def _sub_step(self, feats, labels, penalties, learning_rate: float,
                   positive_class_weight: float, negative_class_weight: float):
         with span("train.forward"):
-            weights = penalties * torch.where(labels > 0.5, positive_class_weight,
-                                              negative_class_weight)
+            weights = loss_weights(penalties, labels, positive_class_weight, negative_class_weight)
             keep = self._keep_mask()
             probs = self.bundle.forward_train(self.model, feats.to(self.flat.dtype),
                                               self.generator if keep is None else keep)
@@ -456,7 +468,7 @@ def train(bundle, config: dict, feature_handler, restore_checkpoint: bool = Fals
     packed, sharded = _pack(config, feature_handler, dev, mesh)
     spc_cfg = config.get("steps_per_call", "auto")
     # auto: one step per call on the card for now (a CUDA graph of the step
-    # is queued in ROADMAP item 11)
+    # is queued in ROADMAP section 2, item 4a)
     steps_per_call = 1 if spc_cfg in ("auto", None, "") else int(spc_cfg)
     producer = None
     if isinstance(packed, HostStreamedData):

@@ -1,35 +1,25 @@
-"""The measuring code beside the port: chip_smoke.py's bound and the
-profiler-key parsing of microwakeword_tpu_torch/frontend/ab.py (both run on
-the card; these parts need none)."""
-
-import importlib.util
-from pathlib import Path
+"""The measuring code beside the port: the frontend kernel's bound, which
+chip_smoke.py takes from the benchmark's counts, and the profiler-key parsing
+of microwakeword_tpu_torch/frontend/ab.py (both run on the card; these parts
+need none)."""
 
 import pytest
 
+from benchmark.counts import frontend as frontend_counts
 from microwakeword_tpu_torch.frontend import ab
-
-REPO = Path(__file__).resolve().parents[1]
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def test_bound_counts_no_more_work_than_the_kernel_does():
-    """The least work per hop must not exceed what the kernel does: launch
+    """The least work per hop (benchmark/counts/frontend.py, which
+    chip_smoke.py's bounds use) must not exceed what the kernel does: launch
     A's 11,760 (csrc/frontend.cu's header) and B's 27 per feature cell."""
-    smoke = _chip_smoke()
-    per_hop = smoke.frontend_flops_per_hop()
+    per_hop = frontend_counts.flops_per_hop()
     assert per_hop == 11767
     assert per_hop <= 11760 + 27 * 40
-    ops_ms, by = smoke.frontend_bound_ms(64, 160000, 998, 2)
+    ops_s, by = frontend_counts.bound_s(64, 160000, 10)
     assert by == "operations"
-    assert ops_ms == pytest.approx(64 * 998 * 11767 / 67e12 * 1e3)
-    assert smoke.frontend_bound_ms(64, 160000, 499, 2)[1] == "bytes"
+    assert ops_s == pytest.approx(64 * 998 * 11767 / 67e12)
+    assert frontend_counts.bound_s(64, 160000, 20)[1] == "bytes"
 
 
 @pytest.mark.parametrize("key,name", [

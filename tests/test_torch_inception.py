@@ -296,7 +296,8 @@ def test_inception_dropout_draw():
     train-mode forward with neither a generator nor a mask."""
     cfg = InceptionConfig(**dict(SMALL, dropout=0.3))
     model = I.Inception(cfg)
-    x = torch.rand(4000, 1000, generator=torch.Generator().manual_seed(1)) + 0.5
+    width = model.Dense_0.weight.shape[1]  # the forward's shape: [rows, tail * C]
+    x = torch.rand(4_000_000 // width, width, generator=torch.Generator().manual_seed(1)) + 0.5
     model.train()
     y = model._dropout(x, torch.Generator().manual_seed(5))
     kept = y != 0
@@ -308,6 +309,24 @@ def test_inception_dropout_draw():
         model(torch.zeros(2, cfg.spectrogram_length, 40))
     model.eval()  # eval mode: no dropout, no generator needed
     assert model(torch.zeros(2, cfg.spectrogram_length, 40)).shape == (2, 1)
+
+
+@pytest.mark.parametrize("family", ["inception", "mixednet"])
+def test_keep_mask_is_the_forwards_draw(family):
+    """The train steps draw the keep mask through the model: Inception's is
+    ``draw_keep_mask`` over [rows, tail * C] with keep 1 - dropout from the
+    generator it is given, and MixedNet, which has no dropout, draws none."""
+    if family == "mixednet":
+        model = build_model("mixednet").build()
+        assert model.keep_mask(5, torch.Generator().manual_seed(3)) is None
+        return
+    cfg = InceptionConfig(**dict(SMALL, dropout=0.3))
+    model = I.Inception(cfg)
+    got = model.keep_mask(5, torch.Generator().manual_seed(3))
+    want = I.draw_keep_mask((5, 12 * I.tail_length(cfg)), 1 - 0.3, torch.Generator().manual_seed(3),
+                            torch.device("cpu"))
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert I.Inception(InceptionConfig(**dict(SMALL, dropout=0.0))).keep_mask(5, None) is None
 
 
 def test_default_inception_preset():

@@ -168,6 +168,35 @@ def test_steps_per_call_reports_last_sub_step():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_adam_for_a_model_and_a_population(dtype):
+    """The solo step's Adam (a float -lr on [P]) and the population's (an
+    [N, 1] -lr on [N, P], one rate per member) are one function over one
+    flat layout: each row of the [N, P] update equals the [P] update with
+    that row's rate, bit for bit, over 3 steps."""
+    gen = torch.Generator().manual_seed(0)
+    lrs = [1e-3, 3e-2, 0.5]
+    n = len(lrs)
+    stacked = [torch.randn((n,) + shape, generator=gen, dtype=dtype)
+               for shape in ((4, 5), (257,), ())]
+    flat, views, grad, mu, nu, count = T.flat_layout(stacked, (n,))
+    assert all(torch.equal(v, t) for v, t in zip(views, stacked))
+    assert flat.shape == (n, 278) and count.dtype == torch.int32 and count.shape == ()
+    solos = [T.flat_layout([t[i] for t in stacked]) for i in range(n)]
+    neg_lr = (-torch.tensor(lrs, dtype=dtype)).reshape(n, 1)
+    for _ in range(3):
+        grad.copy_(torch.randn(flat.shape, generator=gen, dtype=dtype))
+        T.adam(flat, grad, mu, nu, count, neg_lr)
+        for i, (s_flat, _, s_grad, s_mu, s_nu, s_count) in enumerate(solos):
+            s_grad.copy_(grad[i])
+            T.adam(s_flat, s_grad, s_mu, s_nu, s_count, -lrs[i])
+    for i, (s_flat, s_views, _, s_mu, s_nu, s_count) in enumerate(solos):
+        assert s_flat.shape == (278,) and int(s_count) == int(count) == 3
+        assert torch.equal(flat[i], s_flat) and torch.equal(mu[i], s_mu) and torch.equal(nu[i], s_nu)
+        # the views follow their flat vectors
+        assert all(torch.equal(v[i], w) for v, w in zip(views, s_views))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_weighted_bce_matches_jax(seed):
     rng = np.random.default_rng(seed)
